@@ -1,0 +1,464 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port on one NVIDIA GPU (H100, sm_90a).
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+  1. build    compile the flash-decode kernels from the sources in this
+              checkout (nvcc, sm_90a) and print the seconds and ptxas report;
+  2. kernels  hold the dense and the paged kernel against their plain
+              PyTorch versions at the serving path's head shapes (B=8, H=12,
+              K=2, h=128, ragged per-row positions), in float32 and bfloat16,
+              with and without a window; check paged == dense bit for bit on
+              the gathered cache; time kernel, plain version and
+              scaled_dot_product_attention (a yardstick only: the port never
+              calls it);
+  3. model    a reduced float32 qwen2 on the card (through the kernels)
+              against the same weights on the CPU (plain versions);
+  4. serve    qwen2-1.5b at full published width, random weights from a seed,
+              bf16: 16 requests through the paged ServeEngine, then the dense
+              one, with each kernel's launch count read over its run.
+
+Then it prints a JSON line of kernel records, the card's name and power
+limit, and as the last line {"ok": true, "device": {...}}.  It imports
+nothing of JAX or of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parent / "src"
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+PEAK_OPS_PER_S = {"torch.float32": 67e12, "torch.bfloat16": 989e12}
+TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+# --------------------------------------------------------------- timing
+
+
+def time_ms(fn, flush, iters: int = 30) -> float:
+    """Median device time of one call, with L2 flushed before each (the
+    decode step finds its layer's K/V cold: a layer's weights pass through
+    L2 between two reads of its cache)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
+    for s, e in zip(starts, ends):
+        flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def live_rows(pos: list[int], S: int, window: int) -> list[int]:
+    out = []
+    for p in pos:
+        hi = min(p, S - 1)
+        lo = max(p - window + 1, 0) if window else 0
+        out.append(max(hi - lo + 1, 0))
+    return out
+
+
+def bound(q, K, pos, S, window, extra_bytes=0) -> tuple[float, str]:
+    """Least time for the decode: each input byte read once (q, the live
+    K/V rows, pos, the table) and the output written once, against 4*G*h
+    flops per live row and kv head."""
+    B, _, H, h = q.shape
+    item = q.element_size()
+    live = sum(live_rows(pos, S, window))
+    nbytes = 2 * q.numel() * item + live * K * h * 2 * item + 4 * B
+    nbytes += extra_bytes
+    ops = live * K * 4 * (H // K) * h
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_OPS_PER_S[str(q.dtype)]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# ------------------------------------------------------------ phase 2
+
+
+def kernel_phase(dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import flash_decode as fd
+    from repro_torch.kernels.flash_decode import ref
+
+    B, H, K, h, bs = 8, 12, 2, 128, 16
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB
+    records = {}
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def paged_layout(kc, vc, pos_list):
+        """Scatter a dense cache into a permuted page pool; each row's
+        unmapped tail entries point at page 0."""
+        S = kc.shape[1]
+        nb = S // bs
+        P = 1 + B * nb
+        perm = 1 + torch.randperm(P - 1, generator=gen, device=dev)
+        table = perm.reshape(B, nb).to(torch.int32)
+        kp = randn(P, bs, K, h, dtype=kc.dtype)
+        vp = randn(P, bs, K, h, dtype=kc.dtype)
+        kp[table.long()] = kc.reshape(B, nb, bs, K, h)
+        vp[table.long()] = vc.reshape(B, nb, bs, K, h)
+        for b, p in enumerate(pos_list):
+            table[b, p // bs + 1:] = 0
+        return kp, vp, table.contiguous()
+
+    def sdpa(q, kc, vc, pos):
+        """The same decode as one PyTorch call: a yardstick, timed only."""
+        k_pos = torch.arange(kc.shape[1], device=dev)
+        mask = (k_pos[None, :] <= pos[:, None])[:, None, None, :]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, kc, vc))
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask,
+                                                      enable_gqa=True)
+
+    for S, pos_list in ((256, [0, 31, 32, 100, 127, 200, 254, 255]),
+                        (4096, [0, 255, 256, 1000, 2047, 3000, 4000, 4095])):
+        pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            tol = TOL[str(dtype)]
+            q = randn(B, 1, H, h, dtype=dtype)
+            kc, vc = randn(B, S, K, h, dtype=dtype), randn(B, S, K, h, dtype=dtype)
+            errs = {}
+            for window in (0, 100):
+                out = fd.flash_decode_cuda(q, kc, vc, pos, window=window)
+                want = ref.decode_attention_ref(q, kc, vc, pos, window=window)
+                torch.cuda.synchronize()
+                err = errs[window] = (out.float() - want.float()).abs().max().item()
+                print(f"dense  S={S:5d} {str(dtype):15s} window={window:3d} "
+                      f"max_abs_err={err:.3e} (tol {tol})")
+                check(bool(torch.isfinite(out).all()), "dense output not finite")
+                check(err <= tol, f"dense kernel off by {err} at S={S} {dtype}")
+            kp, vp, table = paged_layout(kc, vc, pos_list)
+            out_p = fd.flash_decode_paged_cuda(q, kp, vp, table, pos)
+            want_p = ref.paged_decode_attention_ref(q, kp, vp, table, pos)
+            dense_g = fd.flash_decode_cuda(q, ref.gather_pages(kp, table),
+                                           ref.gather_pages(vp, table), pos)
+            torch.cuda.synchronize()
+            err_p = (out_p.float() - want_p.float()).abs().max().item()
+            same = torch.equal(out_p, dense_g)
+            print(f"paged  S={S:5d} {str(dtype):15s} bs={bs} "
+                  f"max_abs_err={err_p:.3e} (tol {tol}) paged==dense {same}")
+            check(err_p <= tol, f"paged kernel off by {err_p} at S={S} {dtype}")
+            check(same, f"paged != dense on the gathered cache at S={S} {dtype}")
+
+            if dtype != torch.bfloat16:
+                continue
+            # times: S=256 is the serving path's shape (max_seq 256)
+            P = kp.shape[0]
+            kg, vg = ref.gather_pages(kp, table), ref.gather_pages(vp, table)
+            for name, kernel, plain, lib, err, extra in (
+                ("flash_decode",
+                 lambda: fd.flash_decode_cuda(q, kc, vc, pos),
+                 lambda: ref.decode_attention_ref(q, kc, vc, pos),
+                 sdpa(q, kc, vc, pos), errs[0], 0),
+                ("flash_decode_paged",
+                 lambda: fd.flash_decode_paged_cuda(q, kp, vp, table, pos),
+                 lambda: ref.paged_decode_attention_ref(q, kp, vp, table, pos),
+                 sdpa(q, kg, vg, pos), err_p, table.numel() * 4),
+            ):
+                ms = time_ms(kernel, flush)
+                plain_ms = time_ms(plain, flush)
+                library_ms = time_ms(lib, flush)
+                bound_ms, bound_by = bound(q, K, pos_list, S, 0, extra)
+                print(f"time   S={S:5d} {name:19s} ms={ms:.4f} "
+                      f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
+                      f"bound_ms={bound_ms:.5f} ({bound_by}) P={P}")
+                if S == 256:
+                    records[name] = dict(max_abs_err=err, ms=ms,
+                                         plain_ms=plain_ms,
+                                         bound_ms=bound_ms, bound_by=bound_by,
+                                         library_ms=library_ms)
+    return records
+
+
+# ------------------------------------------------------------ phase 3
+
+
+def model_phase(dev) -> None:
+    """Reduced qwen2 in float32: the card (kernels) against the CPU (plain
+    versions) on the same weights, dense and paged, prefill then decode."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.models import Model
+
+    cfg = dataclasses.replace(get_reduced_config("qwen2-1.5b"),
+                              param_dtype="float32", cache_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    cpu = torch.device("cpu")
+
+    def to(tree, d):
+        return {k: to(v, d) for k, v in tree.items()} if isinstance(tree, dict) \
+            else tree.to(d)
+
+    B, C, bs, nb = 2, 8, 16, 4
+    gen = torch.Generator().manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (B, C), generator=gen)
+    steps = torch.randint(0, cfg.vocab_size, (4, B, 1), generator=gen)
+    table = torch.tensor([[1, 2, 3, 4], [5, 6, 0, 0]], dtype=torch.int32)
+    def run(d, paged):
+        p = params if d == dev else to(params, cpu)
+        zeros = torch.zeros(B, dtype=torch.int32, device=d)
+        if paged:  # one (1, C) prefill per row, as the paged engine does
+            cache = model.init_paged_cache(1 + B * nb, bs, device=d)
+            tables = table.to(d)
+            logs = [model.prefill_step(p, cache, prompt[r:r + 1].to(d),
+                                       zeros[r:r + 1], tables[r:r + 1])[0]
+                    for r in range(B)]
+        else:
+            cache = model.init_cache(B, nb * bs, device=d)
+            tables = None
+            logs = [model.prefill_step(p, cache, prompt.to(d), zeros)[0]]
+        for i in range(len(steps)):
+            pos = torch.tensor([C + i, C + 2 * i], dtype=torch.int32, device=d)
+            logs.append(model.decode_step(p, cache, steps[i].to(d), pos,
+                                          tables)[0])
+        return [x.cpu() for x in logs]
+
+    worst = 0.0
+    for paged in (False, True):
+        for a, b in zip(run(dev, paged), run(cpu, paged)):
+            check(bool(torch.isfinite(a).all()), "model logits not finite")
+            worst = max(worst, (a - b).abs().max().item())
+    print(f"model  reduced qwen2 f32 card vs cpu: max_abs_err={worst:.3e} "
+          "(tol 1e-4)")
+    check(worst <= 1e-4, f"card and cpu logits differ by {worst}")
+
+
+# ------------------------------------------------------------ phase 4
+
+
+def serve_phase(dev) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_decode import flash_decode as fd
+    from repro_torch.models import Model
+    from repro_torch.serve import Request, ServeConfig, ServeEngine
+
+    cfg = get_config("qwen2-1.5b")
+    model = Model(cfg)
+    t0 = time.monotonic()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"serve  {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
+          f"H={cfg.num_heads}/K={cfg.num_kv_heads} h={cfg.head_dim} "
+          f"V={cfg.vocab_size} {cfg.param_dtype}: {n_params:,} params, "
+          f"init {time.monotonic() - t0:.2f} s")
+
+    scfg = ServeConfig(batch_rows=8, prefill_chunk=16, token_budget=24,
+                       block_size=16, max_seq=256, num_blocks=129)
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(8, 65, size=16)
+    reqs = [Request(rid=i + 1,
+                    prompt=tuple(int(t) for t in
+                                 rng.integers(0, cfg.vocab_size, size=n)),
+                    max_new_tokens=32)
+            for i, n in enumerate(lengths)]
+    warm = [Request(rid=100, prompt=(1, 2, 3), max_new_tokens=3)]
+
+    results, launches = {}, {}
+    for paged in (True, False):
+        name = "paged" if paged else "dense"
+        engine = ServeEngine(model, params, scfg, paged=paged)
+        engine.run(warm)  # first-call library set-up stays out of the run
+        engine.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fd.reset_launches()
+        res = engine.run(reqs)
+        launches[name] = dict(fd.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        results[name] = res
+        print(f"serve  {name}: completed={res['completed']} "
+              f"steps={res['steps']} decode_steps={engine.decode_steps} "
+              f"prefill_chunks={res['prefill_chunks']} "
+              f"tokens_per_s={res['tokens_per_s']:.2f} "
+              f"ttft_p50={res['ttft_p50']:.6f} s tpot_p50={res['tpot_p50']:.6f} s "
+              f"seconds={res['seconds']:.4f} peak_mem={peak / 2**30:.3f} GiB "
+              f"launches={launches[name]}")
+        check(res["completed"] == len(reqs), f"{name}: not all requests done")
+        for r in reqs:
+            toks = res["outputs"][r.rid]
+            check(len(toks) == r.max_new_tokens, f"{name}: short output")
+            check(all(0 <= t < cfg.vocab_size for t in toks),
+                  f"{name}: token out of range")
+        kernel = "flash_decode_paged" if paged else "flash_decode"
+        other = "flash_decode" if paged else "flash_decode_paged"
+        n = launches[name][kernel]
+        check(n > 0, f"{kernel} never launched in the {name} run")
+        check(n == cfg.num_layers * engine.decode_steps,
+              f"{kernel}: {n} launches != {cfg.num_layers} x "
+              f"{engine.decode_steps} decode steps")
+        check(launches[name][other] == 0, f"{other} launched in the {name} run")
+
+    agree = total = 0
+    for r in reqs:
+        a, b = results["paged"]["outputs"][r.rid], results["dense"]["outputs"][r.rid]
+        agree += sum(x == y for x, y in zip(a, b))
+        total += len(a)
+    print(f"serve  greedy tokens where paged == dense: {agree}/{total} "
+          f"= {agree / total:.4f}")
+
+    trace_phase(model, params, scfg, reqs[:8])
+
+    # the logits themselves: finite, of the expected shape
+    cache = model.init_cache(8, 64)
+    tok = torch.zeros((8, 1), dtype=torch.int32, device=dev)
+    with torch.no_grad():
+        logits, values, _ = model.decode_step(params, cache, tok, 0)
+    check(tuple(logits.shape) == (8, 1, cfg.vocab_size), "logits shape")
+    check(bool(torch.isfinite(logits).all() and torch.isfinite(values).all()),
+          "full-width logits not finite")
+    return {"paged": launches["paged"]["flash_decode_paged"],
+            "dense": launches["dense"]["flash_decode"]}
+
+
+def trace_phase(model, params, scfg, reqs) -> None:
+    """Where the time of the paged engine goes: host time of its prefill
+    and decode calls (each ends in a device sync), then one run under
+    torch.profiler for the device's busy share and its top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import ServeEngine
+
+    engine = ServeEngine(model, params, scfg, paged=True)
+    spent = {"_prefill": [], "_decode": []}
+    for name in spent:
+        fn = getattr(engine, name)
+
+        def timed(*args, fn=fn, name=name):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            spent[name].append(time.perf_counter() - t)
+            return out
+
+        setattr(engine, name, timed)
+    res = engine.run(reqs)
+    calls = {k: sum(v) for k, v in spent.items()}
+    print(f"trace  paged engine, {len(reqs)} requests: {res['seconds']:.4f} s; "
+          f"prefill {len(spent['_prefill'])} calls {calls['_prefill']:.4f} s "
+          f"(mean {1e3 * calls['_prefill'] / len(spent['_prefill']):.3f} ms); "
+          f"decode {len(spent['_decode'])} calls {calls['_decode']:.4f} s "
+          f"(mean {1e3 * calls['_decode'] / len(spent['_decode']):.3f} ms); "
+          f"rest {res['seconds'] - sum(calls.values()):.4f} s")
+
+    engine = ServeEngine(model, params, scfg, paged=True)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    print(f"trace  profiled paged run: wall {wall:.4f} s, device busy "
+          f"{busy:.4f} s = {busy / wall:.4f} of wall (profiler on)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"trace    device {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+    host = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
+        print(f"trace    host   {e.self_cpu_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    return [tree]
+
+
+# ------------------------------------------------------------------ main
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    if not (SRC / "repro_torch").is_dir():
+        print(f"chip_smoke: no port package at {SRC / 'repro_torch'}",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch.kernels.flash_decode import flash_decode as fd
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 checks in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}")
+
+    path, secs, log = fd.build()
+    print(f"build  {path.name}: {secs:.2f} s")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            print(f"build  {line.strip()}")
+
+    records = kernel_phase(dev)
+    model_phase(dev)
+    launches = serve_phase(dev)
+
+    cu = "src/repro_torch/kernels/flash_decode/flash_decode.cu"
+    replaces = {
+        "flash_decode": "src/repro/kernels/flash_decode/flash_decode.py:103",
+        "flash_decode_paged":
+            "src/repro/kernels/flash_decode/flash_decode.py:157",
+    }
+    kernels = [
+        {"name": name, "route": "cuda", "source": cu,
+         "replaces": replaces[name],
+         "launches": launches["paged" if name.endswith("paged") else "dense"],
+         **records[name]}
+        for name in ("flash_decode", "flash_decode_paged")
+    ]
+    print(json.dumps({"kernels": kernels}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,157 @@
+"""GQA attention for serving: the port of the decode and prefill parts of
+``repro/models/attention.py``.
+
+Single-token decode goes through ``kernels/flash_decode`` (the Hopper
+kernels on the card); chunked prefill is ``chunk_decode_attention`` here.
+The cache updates write IN PLACE and return the same tensors, where the
+reference returns new arrays: the port keeps one cache alive instead of
+two.
+
+``decode_attention`` (the reference's jnp decode, which casts the
+probabilities to the cache dtype before the PV product) is not ported:
+the port's decode on the CPU is the kernels' own plain version, which
+stays in float32 as the kernels do.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.models import layers
+from repro_torch.param import ParamBuilder, fan_in_init, zeros_init
+
+NEG_INF = layers.NEG_INF
+
+
+class AttnDims(NamedTuple):
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+
+
+def init_attention(b: ParamBuilder, name: str, dims: AttnDims, *,
+                   qkv_bias: bool = False) -> None:
+    d, H, K, h = dims
+    with b.scope(name):
+        b.param("wq", (d, H, h), fan_in_init())
+        b.param("wk", (d, K, h), fan_in_init())
+        b.param("wv", (d, K, h), fan_in_init())
+        b.param("wo", (H, h, d), fan_in_init())
+        if qkv_bias:
+            b.param("bq", (H, h), zeros_init(), dtype=torch.float32)
+            b.param("bk", (K, h), zeros_init(), dtype=torch.float32)
+            b.param("bv", (K, h), zeros_init(), dtype=torch.float32)
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(B, T, d) x (d, N, h) -> (B, T, N, h)."""
+    d, n, h = w.shape
+    return (x @ w.to(x.dtype).reshape(d, n * h)).unflatten(-1, (n, h))
+
+
+def qkv_project(params, x: torch.Tensor, *, positions: torch.Tensor | None,
+                rope_theta: float):
+    """x: (B, T, D) -> q (B,T,H,h), k/v (B,T,K,h), RoPE applied.  The
+    float32 biases are cast to the activation dtype before the add, as
+    in the reference."""
+    dt = x.dtype
+    q = _project(x, params["wq"])
+    k = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    if "bq" in params:
+        q = q + params["bq"].to(dt)
+        k = k + params["bk"].to(dt)
+        v = v + params["bv"].to(dt)
+    if positions is not None:
+        q = layers.apply_rope(q, positions, rope_theta)
+        k = layers.apply_rope(k, positions, rope_theta)
+    return q, k, v
+
+
+def output_project(params, out: torch.Tensor) -> torch.Tensor:
+    """out: (B, T, H, h) -> (B, T, D)."""
+    wo = params["wo"].to(out.dtype)
+    return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+
+
+def chunk_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor,
+                           pos: torch.Tensor) -> torch.Tensor:
+    """Chunked-prefill attention: a (B, C, H, h) query chunk whose row-b
+    queries sit at positions pos[b]..pos[b]+C-1, against a (B, S, K, h)
+    cache that already holds the chunk's own K/V.  The mask
+    s <= pos[b] + i gives causality against the prefix and within the
+    chunk.  Global attention only (the serving path)."""
+    B, C, H, h = q.shape
+    S, K = k_cache.shape[1], k_cache.shape[2]
+    G = H // K
+    qg = q.reshape(B, C, K, G, h) * (h**-0.5)
+    logits = torch.einsum("bckgh,bskh->bkgcs", qg, k_cache).float()
+    q_pos = pos.reshape(-1, 1) + torch.arange(C, device=q.device)[None, :]
+    q_pos = q_pos.expand(B, C)
+    valid = torch.arange(S, device=q.device)[None, None, :] <= q_pos[..., None]
+    logits = torch.where(valid[:, None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgcs,bskh->bckgh", p.to(v_cache.dtype), v_cache)
+    return out.reshape(B, C, H, h).to(q.dtype)
+
+
+def update_kv_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor, pos):
+    """Write the new (B, 1, K, h) kv at position ``pos``: a Python int
+    (the lockstep path; clamped into range like the reference's
+    ``dynamic_update_slice``) or per-row (B,) int32 positions."""
+    if isinstance(pos, int):
+        s = min(max(pos, 0), k_cache.shape[1] - 1)
+        k_cache[:, s:s + 1] = k.to(k_cache.dtype)
+        v_cache[:, s:s + 1] = v.to(v_cache.dtype)
+        return k_cache, v_cache
+    return update_kv_cache_chunk(k_cache, v_cache, k, v, pos)
+
+
+def update_kv_cache_chunk(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          k: torch.Tensor, v: torch.Tensor,
+                          pos: torch.Tensor):
+    """Write a (B, C, K, h) chunk at per-row start positions ``pos`` (row
+    b's token i lands at slot pos[b] + i).  Slots past the cache are
+    dropped, never clamped: a padded prefill tail or an idle row parked at
+    ``pos = max_seq`` must not clobber the cache tail.  (The reference's
+    ``mode="drop"``; the boolean mask here costs one device sync.)"""
+    B, C = k.shape[0], k.shape[1]
+    S = k_cache.shape[1]
+    s_idx = pos.reshape(-1, 1) + torch.arange(C, device=k.device)[None, :]
+    s_idx = s_idx.expand(B, C)
+    b_idx = torch.arange(B, device=k.device)[:, None].expand(B, C)
+    keep = (s_idx >= 0) & (s_idx < S)
+    k_cache[b_idx[keep], s_idx[keep]] = k[keep].to(k_cache.dtype)
+    v_cache[b_idx[keep], s_idx[keep]] = v[keep].to(v_cache.dtype)
+    return k_cache, v_cache
+
+
+def update_paged_kv_cache(k_pages: torch.Tensor, v_pages: torch.Tensor,
+                          k: torch.Tensor, v: torch.Tensor,
+                          block_tables: torch.Tensor, pos: torch.Tensor):
+    """Write a (B, C, K, h) chunk into (P, bs, K, h) page pools through a
+    (B, nb) block table at per-row start positions ``pos``.
+
+    Logical position p = pos[b] + i lands on page block_tables[b, p // bs]
+    at offset p % bs.  Positions past the table go to the reserved
+    scratch page 0 at offset 0.  Those duplicate writes race, which is
+    harmless only because the allocator never maps page 0 to a live row;
+    live rows hold disjoint pages, so their writes never collide."""
+    bs = k_pages.shape[1]
+    B, C = k.shape[0], k.shape[1]
+    nb = block_tables.shape[1]
+    p_idx = pos.reshape(-1, 1) + torch.arange(C, device=k.device)[None, :]
+    p_idx = p_idx.expand(B, C)
+    in_range = p_idx < nb * bs
+    blk = torch.clamp(p_idx // bs, max=nb - 1).long()
+    phys = torch.gather(block_tables.long(), 1, blk)
+    phys = torch.where(in_range, phys, 0)
+    off = torch.where(in_range, p_idx % bs, 0).long()
+    k_pages[phys, off] = k.to(k_pages.dtype)
+    v_pages[phys, off] = v.to(v_pages.dtype)
+    return k_pages, v_pages

@@ -1,0 +1,188 @@
+"""The serving model API for the dense family: the port of
+``repro/models/model.py`` (``init``, ``init_cache``, ``init_paged_cache``,
+``decode_step``, ``prefill_step``).
+
+    model = Model(cfg)
+    params = model.init(torch.Generator("cuda").manual_seed(0))
+    cache = model.init_paged_cache(num_blocks, block_size)
+    logits, values, cache = model.decode_step(params, cache, tokens, pos,
+                                              block_tables)
+
+The parameter tree has the reference's paths, shapes and dtypes, in
+either of its two layer layouts: stacked (``"blocks"`` with a leading
+layer axis, the default for uniform global attention) or one
+``"layer_{i}"`` subtree per layer (``unroll=True``).  Layers run as a
+Python loop over per-layer views in both.  ``decode_step`` and
+``prefill_step`` write the cache in place and return it.
+
+What the port does not run yet raises ``ValueError`` at construction:
+families other than dense, sliding-window layers, logit softcap,
+qk-norm, learned positions and the fp8 cache.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Iterator
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers
+from repro_torch.models import transformer as tf
+from repro_torch.param import ParamBuilder, fan_in_init
+
+Params = Any
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _unsupported(cfg: ArchConfig, kinds: list[str]) -> list[str]:
+    out = []
+    if cfg.family != "dense":
+        out.append(f"family {cfg.family!r}")
+    if set(kinds) != {"G"}:
+        out.append(f"layer pattern {cfg.layer_pattern!r}")
+    if cfg.attn_logit_softcap:
+        out.append("logit softcap")
+    if cfg.qk_norm:
+        out.append("qk-norm")
+    if cfg.pos_embed != "rope":
+        out.append(f"{cfg.pos_embed} positions")
+    for name in ("param_dtype", "cache_dtype"):
+        if getattr(cfg, name) not in _DTYPES:
+            out.append(f"{name} {getattr(cfg, name)!r}")
+    return out
+
+
+def _index(tree: Params, i: int) -> Params:
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+class Model:
+    def __init__(self, cfg: ArchConfig, unroll: bool = False):
+        self.kinds = tf.layer_kinds(cfg)
+        missing = _unsupported(cfg, self.kinds)
+        if missing:
+            raise ValueError(f"{cfg.name}: the port does not run "
+                             f"{', '.join(missing)} yet")
+        self.cfg = cfg
+        self.stacked = not unroll and tf.is_uniform(cfg)
+
+    # ------------------------------------------------------------------ init
+
+    def init(self, generator: torch.Generator | int,
+             device: str | torch.device | None = None) -> Params:
+        """Random parameters drawn from ``generator`` (or a seed) directly
+        on ``device`` (default: the card)."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        if not isinstance(generator, torch.Generator):
+            generator = torch.Generator(device=dev).manual_seed(int(generator))
+        b = ParamBuilder(generator, _DTYPES[cfg.param_dtype], dev)
+        layers.init_embedding(b, "embedding", cfg.vocab_size, cfg.d_model,
+                              cfg.tie_embeddings)
+        if self.stacked:
+            with b.scope("blocks"), b.stack(cfg.num_layers):
+                tf.init_attn_layer(b, cfg)
+                tf.init_ffn_layer(b, cfg)
+        else:
+            for i in range(cfg.num_layers):
+                with b.scope(f"layer_{i}"):
+                    tf.init_attn_layer(b, cfg)
+                    tf.init_ffn_layer(b, cfg)
+        layers.init_rms_norm(b, "final_norm", cfg.d_model)
+        with b.scope("value_head"):
+            b.param("w", (cfg.d_model, 1), fan_in_init())
+        return b.build()
+
+    # ----------------------------------------------------------------- cache
+
+    def _kv(self, shape: tuple, dtype, device) -> Params:
+        """Zeroed {"k", "v"} per layer in the params' layer layout.  Zeros,
+        never ``empty``: a partly filled page or row is read whole, and
+        0 * NaN would be NaN."""
+        cfg = self.cfg
+        dt = dtype or _DTYPES[cfg.cache_dtype]
+        dev = resolve_device(device)
+        if self.stacked:
+            shape = (cfg.num_layers,) + shape
+            return {"blocks": {n: torch.zeros(shape, dtype=dt, device=dev)
+                               for n in ("k", "v")}}
+        return {f"layer_{i}": {n: torch.zeros(shape, dtype=dt, device=dev)
+                               for n in ("k", "v")}
+                for i in range(cfg.num_layers)}
+
+    def init_cache(self, batch: int, seq_len: int, dtype=None,
+                   device: str | torch.device | None = None) -> Params:
+        """Dense (B, S, K, h) K/V per layer."""
+        cfg = self.cfg
+        return self._kv((batch, seq_len, cfg.num_kv_heads, cfg.head_dim),
+                        dtype, device)
+
+    def init_paged_cache(self, num_blocks: int, block_size: int, dtype=None,
+                         device: str | torch.device | None = None) -> Params:
+        """Page pools (P, bs, K, h) per layer, shared by all rows through
+        a per-request block table (serve/blocks.py).  Page 0 is reserved
+        scratch, never mapped to a live request, so out-of-range writes
+        land there harmlessly."""
+        cfg = self.cfg
+        return self._kv((num_blocks, block_size, cfg.num_kv_heads,
+                         cfg.head_dim), dtype, device)
+
+    # ---------------------------------------------------------------- steps
+
+    def _layers(self, params: Params, cache: Params) -> Iterator:
+        """(layer params, layer cache) per layer; views of the stacked
+        tensors, so cache writes land in ``cache``."""
+        for i in range(self.cfg.num_layers):
+            if self.stacked:
+                yield _index(params["blocks"], i), _index(cache["blocks"], i)
+            else:
+                yield params[f"layer_{i}"], cache[f"layer_{i}"]
+
+    def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        return layers.embed(params["embedding"], tokens.long(),
+                            _DTYPES[self.cfg.param_dtype])
+
+    def _heads(self, params: Params, x: torch.Tensor):
+        """-> (logits (B,T,V) f32, values (B,T) f32)."""
+        x = layers.rms_norm(params["final_norm"], x, self.cfg.rms_norm_eps)
+        logits = layers.unembed(params["embedding"], x)
+        values = (x @ params["value_head"]["w"].to(x.dtype))[..., 0].float()
+        return logits, values
+
+    def decode_step(self, params: Params, cache: Params,
+                    tokens: torch.Tensor, pos,
+                    block_tables: torch.Tensor | None = None):
+        """tokens: (B, 1) -> (logits (B,1,V) f32, values (B,1) f32, cache).
+
+        ``pos`` is an int (lockstep batch) or a (B,) int32 tensor of
+        per-row positions.  ``block_tables`` (B, nb) int32 switches to the
+        page pools from ``init_paged_cache``."""
+        x = self._embed(params, tokens)
+        for p, c in self._layers(params, cache):
+            x, _ = tf.attn_sublayer_decode(p, c, x, pos, self.cfg,
+                                           block_tables=block_tables)
+            x = tf.ffn_sublayer(p, x, self.cfg)
+        return (*self._heads(params, x), cache)
+
+    def prefill_step(self, params: Params, cache: Params,
+                     tokens: torch.Tensor, pos: torch.Tensor,
+                     block_tables: torch.Tensor | None = None):
+        """Chunked prefill of a (B, C) token chunk whose row-b tokens sit
+        at positions pos[b]..pos[b]+C-1 -> (logits (B,C,V) f32,
+        values (B,C) f32, cache): the fused equivalent of C sequential
+        ``decode_step`` calls."""
+        x = self._embed(params, tokens)
+        for p, c in self._layers(params, cache):
+            x, _ = tf.attn_sublayer_prefill(p, c, x, pos, self.cfg,
+                                            block_tables=block_tables)
+            x = tf.ffn_sublayer(p, x, self.cfg)
+        return (*self._heads(params, x), cache)
+
+
+def make_model(cfg: ArchConfig, unroll: bool = False) -> Model:
+    return Model(cfg, unroll=unroll)

@@ -1,0 +1,215 @@
+"""The port's flash-decode (``repro_torch.kernels.flash_decode``) against
+the reference's Pallas kernels run in interpret mode on the CPU.
+
+Inputs are drawn with numpy from a seed and handed to both packages; a
+bf16 input is rounded once, identically, on both sides.
+
+Tolerances (max abs error), as the reference holds its kernels against
+its oracles (``tests/test_kernels.py:20-21``):
+  * float32: 2e-5 — both compute in f32, only the summation order differs;
+  * bfloat16: 2e-2 — both compute in f32 from the same bf16 inputs, and the
+    outputs round to bf16 (one ulp of bf16 near 1 is 7.8e-3).
+Within the port, dispatch and the paged-vs-dense identity are exact.
+
+The CUDA kernels themselves run only on the card: the ``gpu`` tests here
+skip without one, and ``chip_smoke.py`` holds the kernels against these
+plain versions at the serving shapes.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_decode.flash_decode import (
+    flash_decode_pallas,
+    flash_decode_pallas_paged,
+)
+from repro_torch.kernels.flash_decode import flash_decode as fd
+from repro_torch.kernels.flash_decode import ops, ref
+
+torch.set_num_threads(2)
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """One f32 numpy array -> (jax array, torch tensor) of ``dtype``,
+    bit-identical."""
+    j = jnp.asarray(x, dtype)
+    t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(
+        getattr(torch, dtype)
+    )
+    return j, t
+
+
+def _err(j, t) -> float:
+    return float(np.abs(np.asarray(j, np.float32) - t.float().numpy()).max())
+
+
+def _paged_inputs(seed: int, B: int, nb: int, bs: int, H: int, K: int,
+                  h: int):
+    rng = np.random.default_rng(seed)
+    P = 1 + B * nb
+    q = rng.standard_normal((B, 1, H, h), np.float32)
+    kp = rng.standard_normal((P, bs, K, h), np.float32)
+    vp = rng.standard_normal((P, bs, K, h), np.float32)
+    tables = (1 + rng.permutation(P - 1)[: B * nb]).reshape(B, nb)
+    return q, kp, vp, tables.astype(np.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize(
+    "B,S,H,K,h,pos,window,bs",
+    [
+        (2, 256, 4, 2, 64, 100, 0, 64),
+        (1, 512, 8, 1, 32, 511, 0, 128),  # MQA, full cache
+        (2, 256, 4, 4, 64, 200, 64, 64),  # MHA + sliding window
+        (1, 128, 8, 2, 128, 0, 0, 64),  # first token
+    ],
+)
+def test_decode_ref_matches_jax_pallas(B, S, H, K, h, pos, window, bs, dtype):
+    rng = np.random.default_rng(S + pos)
+    qj, qt = _pair(rng.standard_normal((B, 1, H, h), np.float32), dtype)
+    kj, kt = _pair(rng.standard_normal((B, S, K, h), np.float32), dtype)
+    vj, vt = _pair(rng.standard_normal((B, S, K, h), np.float32), dtype)
+    want = flash_decode_pallas(qj, kj, vj, jnp.int32(pos), window=window,
+                               block_s=bs, interpret=True)
+    got = ref.decode_attention_ref(qt, kt, vt, pos, window=window)
+    assert got.dtype == qt.dtype and got.shape == (B, 1, H, h)
+    assert _err(want, got) < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_ref_ragged_rows_and_block_not_s(dtype):
+    """Rows at pos 0, 7 and 31 in one batch, with S (32) != the Pallas
+    block (16); the per-row batch equals the scalar calls to within
+    1e-6 (torch's CPU einsum sums a batch of 3 in another order than a
+    batch of 1, so the bits may differ; the masks may not)."""
+    S, H, K, h = 32, 4, 2, 64
+    rng = np.random.default_rng(17)
+    qj, qt = _pair(rng.standard_normal((3, 1, H, h), np.float32), dtype)
+    kj, kt = _pair(rng.standard_normal((3, S, K, h), np.float32), dtype)
+    vj, vt = _pair(rng.standard_normal((3, S, K, h), np.float32), dtype)
+    pos = np.array([0, 7, 31], np.int32)
+    want = flash_decode_pallas(qj, kj, vj, jnp.asarray(pos), block_s=16,
+                               interpret=True)
+    got = ref.decode_attention_ref(qt, kt, vt, torch.from_numpy(pos))
+    assert _err(want, got) < TOL[dtype]
+    for b in range(3):
+        row = ref.decode_attention_ref(qt[b:b + 1], kt[b:b + 1], vt[b:b + 1],
+                                       int(pos[b]))
+        assert (got[b:b + 1].float() - row.float()).abs().max() <= \
+            (1e-6 if dtype == "float32" else 0.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_ref_matches_jax_pallas_paged(dtype):
+    """A scrambled logical->physical page layout (page 0 reserved) with
+    ragged positions: the port's paged version matches the reference's
+    paged kernel, and equals the port's dense version on the gathered
+    cache bit for bit."""
+    B, nb, bs, H, K, h = 3, 4, 8, 4, 2, 32
+    q, kp, vp, tables = _paged_inputs(23, B, nb, bs, H, K, h)
+    qj, qt = _pair(q, dtype)
+    kj, kt = _pair(kp, dtype)
+    vj, vt = _pair(vp, dtype)
+    pos = np.array([0, 9, 31], np.int32)
+    want = flash_decode_pallas_paged(qj, kj, vj, jnp.asarray(tables),
+                                     jnp.asarray(pos), interpret=True)
+    tt, pt = torch.from_numpy(tables), torch.from_numpy(pos)
+    got = ref.paged_decode_attention_ref(qt, kt, vt, tt, pt)
+    assert _err(want, got) < TOL[dtype]
+    dense = ref.decode_attention_ref(qt, ref.gather_pages(kt, tt),
+                                     ref.gather_pages(vt, tt), pt)
+    assert torch.equal(got, dense)
+
+
+def test_gather_pages_layout_and_idle_rows():
+    """Logical position s of row b is pages[table[b, s // bs], s % bs]; an
+    all-zero table row (an idle engine row) reads the scratch page, and a
+    position past the table (``pos = max_seq``) attends to every slot."""
+    B, nb, bs, H, K, h = 2, 3, 4, 2, 1, 8
+    q, kp, vp, tables = _paged_inputs(5, B, nb, bs, H, K, h)
+    tables[1] = 0
+    kt, tt = torch.from_numpy(kp), torch.from_numpy(tables)
+    g = ref.gather_pages(kt, tt)
+    assert g.shape == (B, nb * bs, K, h)
+    for s in range(nb * bs):
+        assert torch.equal(g[0, s], kt[tables[0, s // bs], s % bs])
+        assert torch.equal(g[1, s], kt[0, s % bs])
+    out = ref.paged_decode_attention_ref(
+        torch.from_numpy(q), kt, torch.from_numpy(vp), tt,
+        torch.tensor([5, nb * bs], dtype=torch.int32),
+    )
+    assert torch.isfinite(out).all()
+
+
+def test_ops_sends_cpu_tensors_to_plain_versions_and_guards_window():
+    B, nb, bs, H, K, h = 2, 3, 8, 2, 1, 32
+    q, kp, vp, tables = _paged_inputs(29, B, nb, bs, H, K, h)
+    qt, kt, vt, tt = (torch.from_numpy(x) for x in (q, kp, vp, tables))
+    pos = torch.tensor([4, 20], dtype=torch.int32)
+    paged = ops.flash_decode(qt, kt, vt, pos, block_tables=tt)
+    assert torch.equal(paged,
+                       ref.paged_decode_attention_ref(qt, kt, vt, tt, pos))
+    kc, vc = ref.gather_pages(kt, tt), ref.gather_pages(vt, tt)
+    dense = ops.flash_decode(qt, kc, vc, pos, window=8)
+    assert torch.equal(dense, ref.decode_attention_ref(qt, kc, vc, pos,
+                                                       window=8))
+    with pytest.raises(ValueError):
+        ops.flash_decode(qt, kt, vt, pos, block_tables=tt, window=8)
+
+
+def test_kernel_wrappers_take_only_cuda_tensors():
+    """A wrapper launches its kernel or raises: a CPU tensor is refused
+    before anything is built, never sent to the plain version."""
+    q = torch.zeros(1, 1, 2, 8)
+    kc = torch.zeros(1, 4, 1, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        fd.flash_decode_cuda(q, kc, kc, 0)
+    with pytest.raises(ValueError, match="CUDA"):
+        fd.flash_decode_paged_cuda(q, kc, kc,
+                                   torch.zeros(1, 1, dtype=torch.int32), 0)
+    assert fd.LAUNCHES == {"flash_decode": 0, "flash_decode_paged": 0}
+
+
+def test_build_targets_hopper_and_keys_on_source():
+    flags = " ".join(fd.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
+    path = fd.library_path()
+    assert path.parent == fd.BUILD_DIR and path.parent.name == "kernels"
+    assert path.parent.parent.name == "build"
+    assert path.name.startswith("flash_decode-") and path.suffix == ".so"
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_match_plain_versions_on_card(cuda, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    B, nb, bs, H, K, h = 3, 4, 16, 12, 2, 128
+    S, P = nb * bs, 1 + B * nb
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+
+    q, kp, vp = randn(B, 1, H, h), randn(P, bs, K, h), randn(P, bs, K, h)
+    tables = (1 + torch.randperm(P - 1, generator=gen, device=cuda))
+    tables = tables.reshape(B, nb).to(torch.int32)
+    pos = torch.tensor([0, 17, S - 1], dtype=torch.int32, device=cuda)
+    kc, vc = ref.gather_pages(kp, tables), ref.gather_pages(vp, tables)
+    tol = TOL[str(dtype).split(".")[1]]
+    for window in (0, 10):
+        got = fd.flash_decode_cuda(q, kc, vc, pos, window=window)
+        want = ref.decode_attention_ref(q, kc, vc, pos, window=window)
+        assert (got.float() - want.float()).abs().max().item() < tol
+    paged = fd.flash_decode_paged_cuda(q, kp, vp, tables, pos)
+    assert torch.equal(paged, fd.flash_decode_cuda(q, kc, vc, pos))
