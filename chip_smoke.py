@@ -5,20 +5,32 @@
 
 Phases, in order; any failure exits non-zero:
 
-  1. build    compile the flash-decode kernels from the sources in this
-              checkout (nvcc, sm_90a) and print the seconds and ptxas report;
-  2. kernels  hold the dense and the paged kernel against their plain
-              PyTorch versions at the serving path's head shapes (B=8, H=12,
-              K=2, h=128, ragged per-row positions), in float32 and bfloat16,
-              with and without a window; check paged == dense bit for bit on
-              the gathered cache; time kernel, plain version and
-              scaled_dot_product_attention (a yardstick only: the port never
-              calls it);
+  1. build    compile every CUDA source of the port (flash_decode.cu,
+              vtrace.cu) from this checkout, one nvcc each, all at once
+              (sm_90a), and print the seconds and the ptxas report;
+  2. kernels  hold the dense and the paged flash-decode kernel against
+              their plain PyTorch versions at the serving path's head shapes
+              (B=8, H=12, K=2, h=128, ragged per-row positions), in float32
+              and bfloat16, with and without a window; check paged == dense
+              bit for bit on the gathered cache; time kernel, plain version
+              and scaled_dot_product_attention (a yardstick only: the port
+              never calls it).  Hold the V-trace kernel against its plain
+              version at the reference's sweep shapes, the learner's
+              (32, 20) and a large (4096, 100), with default and other
+              clips, and time both;
   3. model    a reduced float32 qwen2 on the card (through the kernels)
               against the same weights on the CPU (plain versions);
   4. serve    qwen2-1.5b at full published width, random weights from a seed,
               bf16: 16 requests through the paged ServeEngine, then the dense
-              one, with each kernel's launch count read over its run.
+              one, with each kernel's launch count read over its run; one
+              dense engine prefill and decode call under
+              torch.cuda.set_sync_debug_mode("error");
+  5. learner  one Sebulba learner update of the full-width ConvActorCritic
+              on the card (V-trace kernel) against the same update on the
+              CPU (plain version), TF32 off;
+  6. sebulba  the examples/sebulba_impala.py configuration trained on the
+              card through Sebulba.fit for 200 trajectories, the V-trace
+              launch count read over the run, then a profiled window.
 
 Then it prints a JSON line of kernel records, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.  It imports
@@ -27,6 +39,8 @@ nothing of JAX or of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -44,6 +58,29 @@ TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+@contextlib.contextmanager
+def full_f32():
+    """float32 convolutions and matmuls without TF32 (cuDNN's default is
+    TF32), for the phases that hold the card against the CPU."""
+    import torch
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device, copy=True)
 
 
 # --------------------------------------------------------------- timing
@@ -90,6 +127,29 @@ def bound(q, K, pos, S, window, extra_bytes=0) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[str(q.dtype)]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+# ------------------------------------------------------------ phase 1
+
+
+def build_phase() -> None:
+    """Every CUDA source of the port, one nvcc each, started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_decode import flash_decode as fd
+    from repro_torch.kernels.vtrace import vtrace as vt
+
+    sources = [fd.SOURCE, vt.SOURCE]
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        built = list(pool.map(_build.build, sources))
+    print(f"build  {len(sources)} sources in {time.monotonic() - t0:.2f} s")
+    for path, secs, log in built:
+        print(f"build  {path.name}: {secs:.2f} s")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"build  {line.strip()}")
 
 
 # ------------------------------------------------------------ phase 2
@@ -195,6 +255,77 @@ def kernel_phase(dev) -> dict:
     return records
 
 
+# ---------------------------------------------------- phase 2, V-trace
+
+# the reference's sweep (tests/test_kernels.py), the learner's (32, 20), a
+# large batch, and ragged edges: several 32-step tiles, T = 1, one row
+VTRACE_SHAPES = [(8, 32), (16, 100), (4, 7), (10, 12), (5, 9), (3, 6),
+                 (32, 20), (4096, 100), (33, 33), (64, 1), (1, 200)]
+VTRACE_CLIPS = [{}, dict(clip_rho=0.9, clip_c=0.8, lambda_=0.95)]
+VTRACE_OPS_PER_ELEMENT = 16  # exp, 2 min, 13 multiply/add (vtrace.cu)
+
+
+def vtrace_bound(B: int, T: int) -> tuple[float, str]:
+    """Least time for V-trace: four (B, T) f32 inputs and the (B,)
+    bootstrap read once, two (B, T) outputs written once, against
+    VTRACE_OPS_PER_ELEMENT f32 operations per element."""
+    t_bytes = 4 * (6 * B * T + B) / HBM_BYTES_PER_S
+    t_ops = VTRACE_OPS_PER_ELEMENT * B * T / PEAK_OPS_PER_S["torch.float32"]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def vtrace_phase(dev) -> dict:
+    import torch
+
+    from repro_torch.kernels.vtrace import ref
+    from repro_torch.kernels.vtrace import vtrace as vt
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+
+    def inputs(B, T):
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+
+        disc = (torch.rand(B, T, generator=gen, device=dev) > 0.1).float()
+        return [0.3 * randn(B, T), disc * 0.99, randn(B, T), randn(B, T),
+                randn(B)]
+
+    errs = {}
+    for B, T in VTRACE_SHAPES:
+        xs = inputs(B, T)
+        for i, clips in enumerate(VTRACE_CLIPS):
+            got = vt.vtrace_cuda(*xs, **clips)
+            want = ref.vtrace_ref(*xs, **clips)
+            torch.cuda.synchronize()
+            err = excess = 0.0
+            for g, w in zip(got, want):
+                check(bool(torch.isfinite(g).all()), "vtrace output not finite")
+                d = (g - w).abs()
+                err = max(err, d.max().item())
+                excess = max(excess, (d - 1e-5 * w.abs()).max().item())
+            errs[B, T, i] = err
+            print(f"vtrace B={B:5d} T={T:4d} clips={clips or 'default'} "
+                  f"max_abs_err={err:.3e} (tol 1e-5 + 1e-5*|ref|)")
+            check(excess <= 1e-5, f"vtrace kernel off by {err} at "
+                  f"({B}, {T}) {clips}")
+
+    record = {}
+    for B, T in ((32, 20), (4096, 100)):
+        xs = inputs(B, T)
+        ms = time_ms(lambda: vt.vtrace_cuda(*xs), flush)
+        plain_ms = time_ms(lambda: ref.vtrace_ref(*xs), flush)
+        bound_ms, bound_by = vtrace_bound(B, T)
+        print(f"time   vtrace B={B:5d} T={T:4d} ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}) "
+              "library_ms=- (no single PyTorch call computes V-trace)")
+        if (B, T) == (32, 20):  # the learner's shape on the main path
+            record = dict(max_abs_err=max(errs[B, T, 0], errs[B, T, 1]),
+                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                          bound_by=bound_by, library_ms=None)
+    return {"vtrace": record}
+
+
 # ------------------------------------------------------------ phase 3
 
 
@@ -214,17 +345,13 @@ def model_phase(dev) -> None:
     params = model.init(torch.Generator(device=dev).manual_seed(1))
     cpu = torch.device("cpu")
 
-    def to(tree, d):
-        return {k: to(v, d) for k, v in tree.items()} if isinstance(tree, dict) \
-            else tree.to(d)
-
     B, C, bs, nb = 2, 8, 16, 4
     gen = torch.Generator().manual_seed(2)
     prompt = torch.randint(0, cfg.vocab_size, (B, C), generator=gen)
     steps = torch.randint(0, cfg.vocab_size, (4, B, 1), generator=gen)
     table = torch.tensor([[1, 2, 3, 4], [5, 6, 0, 0]], dtype=torch.int32)
     def run(d, paged):
-        p = params if d == dev else to(params, cpu)
+        p = params if d == dev else _tree_to(params, cpu)
         zeros = torch.zeros(B, dtype=torch.int32, device=d)
         if paged:  # one (1, C) prefill per row, as the paged engine does
             cache = model.init_paged_cache(1 + B * nb, bs, device=d)
@@ -329,6 +456,7 @@ def serve_phase(dev) -> dict:
     print(f"serve  greedy tokens where paged == dense: {agree}/{total} "
           f"= {agree / total:.4f}")
 
+    dense_sync_check(model, params, scfg)
     trace_phase(model, params, scfg, reqs[:8])
 
     # the logits themselves: finite, of the expected shape
@@ -341,6 +469,41 @@ def serve_phase(dev) -> dict:
           "full-width logits not finite")
     return {"paged": launches["paged"]["flash_decode_paged"],
             "dense": launches["dense"]["flash_decode"]}
+
+
+def dense_sync_check(model, params, scfg) -> None:
+    """One dense engine prefill call and one decode call, rows in range,
+    straddling the cache end and parked past it, under
+    set_sync_debug_mode("error"): any device->host sync raises."""
+    import torch
+
+    from repro_torch.serve import ServeEngine
+
+    engine = ServeEngine(model, params, scfg, paged=False)
+    dev = engine.device
+    B, C, S = scfg.batch_rows, scfg.prefill_chunk, scfg.max_seq
+    i32 = dict(dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    tokens = torch.randint(0, model.cfg.vocab_size, (B, C), generator=gen,
+                           **i32)
+    pos = torch.tensor([0, 5, 16, 40, S - 6, S, S, 100], **i32)[:B]
+    lens = torch.full((B,), C, **i32)
+    rids = torch.arange(1, B + 1, **i32)
+    tok_idx = torch.zeros(B, **i32)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = engine._prefill(tokens, pos, lens, None, rids, tok_idx)
+        second = engine._decode(tokens[:, :1], pos, None, rids, tok_idx)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for out in (first, second):
+        check(bool(((out >= 0) & (out < model.cfg.vocab_size)).all()),
+              "dense step sampled a token out of range")
+    print(f"sync   dense engine prefill ({B}, {C}) + decode ({B}, 1) calls, "
+          f"rows at {pos.tolist()} of S={S}: no device sync "
+          "(set_sync_debug_mode error)")
 
 
 def trace_phase(model, params, scfg, reqs) -> None:
@@ -396,6 +559,200 @@ def trace_phase(model, params, scfg, reqs) -> None:
               f"{e.count:6d}x  {e.key[:90]}")
 
 
+# ------------------------------------------------------------ phase 5
+
+
+def _sebulba(device):
+    """The examples/sebulba_impala.py configuration on ``device``."""
+    from repro_torch.launch.sebulba_impala import build
+
+    return build(device=device)
+
+
+def learner_phase(dev) -> None:
+    """One learner update of the full-width net on the card (V-trace
+    kernel) against the same update on the CPU (plain version), from the
+    same params and trajectory, TF32 off.
+
+    The gradients must agree leaf by leaf (1e-5 + 1e-4 * |g|: cuDNN sums
+    the convolutions in another order than the CPU).  The update is
+    RMSProp's first step, g / (sqrt(0.01 g^2) + 1e-8) * lr: ~10 * lr *
+    sign(g) wherever |g| >> 1e-7, and where |g| is near 1e-8 it turns the
+    gradient's last-bit differences into differences up to ~20 * lr.  So
+    the updated params must agree within 1e-4 wherever |g| >= 1e-6 (the
+    step is well conditioned there); the largest difference elsewhere is
+    printed beside it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.data.trajectory import Trajectory
+    from repro_torch.kernels.vtrace import vtrace as vt
+    from repro_torch.tree import unflatten
+
+    cpu = torch.device("cpu")
+    on_card, on_cpu = _sebulba(dev), _sebulba("cpu")
+    B, T = on_card.cfg.actor_batch_size, on_card.cfg.trajectory_length
+    params = on_cpu.agent.init(torch.Generator().manual_seed(5), (16, 16, 1))
+    rng = np.random.default_rng(6)
+    obs = (rng.random((B, T + 1, 16, 16, 1)) > 0.95).astype(np.float32)
+    traj = Trajectory(
+        obs=torch.from_numpy(obs[:, :T]),
+        actions=torch.from_numpy(rng.integers(0, 3, (B, T))),
+        rewards=torch.from_numpy(
+            rng.choice([-1.0, 0.0, 1.0], (B, T)).astype(np.float32)),
+        discounts=torch.from_numpy(
+            ((rng.random((B, T)) > 0.05) * 0.99).astype(np.float32)),
+        behaviour_logp=torch.from_numpy(
+            np.log(rng.uniform(0.2, 0.5, (B, T))).astype(np.float32)),
+        bootstrap_obs=torch.from_numpy(obs[:, T]),
+    )
+    card_traj = Trajectory(*(x.to(dev) for x in traj[:6]))
+
+    def grads(seb, p, t):
+        live = [x.detach().requires_grad_() for x in _leaves(p)]
+        loss, _ = seb.agent.loss(unflatten(p, live), t)
+        return [g.to(cpu) for g in torch.autograd.grad(loss, live)]
+
+    with full_f32():
+        g_card = grads(on_card, _tree_to(params, dev), card_traj)
+        g_cpu = grads(on_cpu, params, traj)
+        card_params = _tree_to(params, dev)
+        with torch.no_grad():
+            before = vt.LAUNCHES["vtrace"]
+            got, _, macc_card = on_card._update(
+                card_params, on_card.opt.init(card_params), card_traj, None)
+            launched = vt.LAUNCHES["vtrace"] - before
+            want, _, macc_cpu = on_cpu._update(
+                params, on_cpu.opt.init(params), traj, None)
+    torch.cuda.synchronize()
+    g_excess = max(((a - b).abs() - 1e-4 * b.abs()).max().item()
+                   for a, b in zip(g_card, g_cpu))
+    g_err = max((a - b).abs().max().item() for a, b in zip(g_card, g_cpu))
+    diffs = [(a.to(cpu) - b).abs() for a, b in zip(_leaves(got), _leaves(want))]
+    well = [g.abs() >= 1e-6 for g in g_cpu]
+    p_err = max(d[w].max().item() if w.any() else 0.0
+                for d, w in zip(diffs, well))
+    p_all = max(d.max().item() for d in diffs)
+    below = sum(int((~w).sum()) for w in well)
+    m_card, m_cpu = on_card._drain_macc(macc_card), on_cpu._drain_macc(macc_cpu)
+    m_err = max(abs(m_card[k] - m_cpu[k]) for k in m_cpu)
+    print(f"learner one update, full-width ConvActorCritic, B={B} T={T}, "
+          f"card vs cpu, TF32 off: grads max_abs_err={g_err:.3e} "
+          f"(tol 1e-5 + 1e-4*|g|); params max_abs_err={p_err:.3e} where "
+          f"|g| >= 1e-6 (tol 1e-4), {p_all:.3e} over all "
+          f"({below} of {sum(d.numel() for d in diffs)} elements have "
+          f"|g| < 1e-6); metrics max_abs_err={m_err:.3e} (tol 1e-4); "
+          f"vtrace launches={launched}")
+    check(launched == 1, f"the card's update launched vtrace {launched}x")
+    check(g_excess <= 1e-5, f"card and cpu gradients differ by {g_err}")
+    check(p_err <= 1e-4, f"card and cpu learner updates differ by {p_err}")
+    check(m_err <= 1e-4, f"card and cpu learner metrics differ by {m_err}")
+
+
+# ------------------------------------------------------------ phase 6
+
+SEBULBA_FRAMES = 200 * 32 * 20  # 200 trajectories of the example's shape
+
+
+def sebulba_phase(dev) -> int:
+    """Train the example's configuration on the card; returns the V-trace
+    launches of the run."""
+    import math
+
+    import torch
+
+    from repro_torch.api import RESULT_KEYS
+    from repro_torch.kernels.flash_decode import flash_decode as fd
+    from repro_torch.kernels.vtrace import ref
+    from repro_torch.kernels.vtrace import vtrace as vt
+
+    plain_on_card = [0]
+    plain = ref.vtrace_ref
+
+    def counted(log_rhos, *args, **kw):  # ops.vtrace reaches it as ref.vtrace_ref
+        plain_on_card[0] += log_rhos.is_cuda
+        return plain(log_rhos, *args, **kw)
+
+    warm = _sebulba(dev)  # first-call set-up (cuDNN, streams) stays out
+    warm.fit(0, total_frames=4 * 32 * 20)
+    seb = _sebulba(dev)
+    gc.collect()  # what earlier phases left behind stays out of the peak
+    ref.vtrace_ref = counted
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        vt.reset_launches()
+        fd.reset_launches()
+        out = seb.fit(0, total_frames=SEBULBA_FRAMES, log_every=50)
+        torch.cuda.synchronize()
+        launches = vt.LAUNCHES["vtrace"]
+        other = dict(fd.LAUNCHES)
+    finally:
+        ref.vtrace_ref = plain
+    peak = torch.cuda.max_memory_allocated()
+    cfg = seb.cfg
+    print(f"sebulba {out['frames']:,} frames, {out['updates']} updates in "
+          f"{out['seconds']:.4f} s: fps={out['fps']:.2f} "
+          f"updates_per_s={out['updates'] / out['seconds']:.4f} "
+          f"mean_return={out['mean_return']:.4f} "
+          f"publishes_sent={out['publishes_sent']} "
+          f"publishes_skipped={out['publishes_skipped']} "
+          f"put_blocked={out['put_blocked']} "
+          f"traj_dropped={out['traj_dropped']} "
+          f"peak_mem={peak / 2**30:.4f} GiB (of which "
+          f"{base / 2**30:.4f} GiB held before the run) "
+          f"vtrace_launches={launches} "
+          f"plain_vtrace_on_card={plain_on_card[0]}")
+    print(f"sebulba metrics {json.dumps(out['metrics'])}")
+    check(set(out) == set(RESULT_KEYS), "result keys differ from RESULT_KEYS")
+    check(out["updates"] >= 100, f"only {out['updates']} learner updates")
+    check(launches > 0, "vtrace never launched in the Sebulba run")
+    check(launches == out["updates"] * cfg.learner_microbatches,
+          f"vtrace launches {launches} != {out['updates']} updates x "
+          f"{cfg.learner_microbatches} microbatches")
+    check(plain_on_card[0] == 0, "the plain V-trace ran on the card")
+    check(not any(other.values()), f"flash-decode launched: {other}")
+    check(out["param_version"] == out["updates"] + 1, "param_version")
+    check(all(math.isfinite(v) for v in out["metrics"].values())
+          and len(out["metrics"]) == 5, f"metrics {out['metrics']}")
+    check(all(bool(torch.isfinite(x).all()) for x in _leaves(out["params"])),
+          "trained params not finite")
+    check(all(x.device.type == "cuda" for x in _leaves(out["params"])),
+          "params left the card")
+    sebulba_trace(dev)
+    return launches
+
+
+def sebulba_trace(dev) -> None:
+    """A profiled Sebulba run: the device's busy share and where the
+    device and host time go."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    seb = _sebulba(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = seb.fit(0, total_frames=40 * 32 * 20)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    print(f"trace  profiled Sebulba run: {out['updates']} updates, "
+          f"{out['frames']:,} frames, wall {wall:.4f} s, device busy "
+          f"{busy:.4f} s = {busy / wall:.4f} of wall (profiler on; kernel "
+          "time summed over streams)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"trace    device {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+    host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+        print(f"trace    host   {e.self_cpu_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -416,37 +773,33 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    from repro_torch.kernels.flash_decode import flash_decode as fd
 
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False  # f32 checks in full f32
-    torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    path, secs, log = fd.build()
-    print(f"build  {path.name}: {secs:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print(f"build  {line.strip()}")
-
+    build_phase()
     records = kernel_phase(dev)
-    model_phase(dev)
+    records.update(vtrace_phase(dev))
+    with full_f32():
+        model_phase(dev)
     launches = serve_phase(dev)
+    learner_phase(dev)
+    launches["vtrace"] = sebulba_phase(dev)
 
-    cu = "src/repro_torch/kernels/flash_decode/flash_decode.cu"
-    replaces = {
-        "flash_decode": "src/repro/kernels/flash_decode/flash_decode.py:103",
-        "flash_decode_paged":
-            "src/repro/kernels/flash_decode/flash_decode.py:157",
-    }
-    kernels = [
-        {"name": name, "route": "cuda", "source": cu,
-         "replaces": replaces[name],
-         "launches": launches["paged" if name.endswith("paged") else "dense"],
-         **records[name]}
-        for name in ("flash_decode", "flash_decode_paged")
-    ]
+    kernels = []
+    for name, source, replaces, path in (
+        ("flash_decode", "src/repro_torch/kernels/flash_decode/flash_decode.cu",
+         "src/repro/kernels/flash_decode/flash_decode.py:103", "dense"),
+        ("flash_decode_paged",
+         "src/repro_torch/kernels/flash_decode/flash_decode.cu",
+         "src/repro/kernels/flash_decode/flash_decode.py:157", "paged"),
+        ("vtrace", "src/repro_torch/kernels/vtrace/vtrace.cu",
+         "src/repro/kernels/vtrace/vtrace.py:60", "vtrace"),
+    ):
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[path],
+                        **records[name]})
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

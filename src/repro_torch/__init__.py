@@ -14,5 +14,7 @@ Entry points run on the card unless the caller names another device
 
 Ported so far: serving of the dense family (``serve.ServeEngine``,
 ``python -m repro_torch.launch.serve``) through the dense and paged
-flash-decode kernels.
+flash-decode kernels; on-policy Sebulba IMPALA over host environments
+(``core.Sebulba``, ``python -m repro_torch.launch.sebulba_impala``) through
+the V-trace kernel.
 """

@@ -1,7 +1,101 @@
-"""The serving result schema: the port of ``SERVE_RESULT_KEYS`` and
-``make_serve_result`` from ``repro/api/runner.py``."""
+"""The result schemas: the port of ``RESULT_KEYS`` / ``make_result``
+(training runners) and ``SERVE_RESULT_KEYS`` / ``make_serve_result``
+(``ServeEngine``) from ``repro/api/runner.py``.
+
+A counter that a runner does not have is reported as 0, never missing, so
+every result of one kind has one shape.
+"""
 
 from __future__ import annotations
+
+from typing import Any
+
+RESULT_KEYS = (
+    "params",
+    "updates",
+    "frames",
+    "fps",
+    "seconds",
+    "param_version",
+    "publishes_sent",
+    "publishes_skipped",
+    "put_blocked",
+    "traj_dropped",
+    "replay_size",
+    "checkpoints_saved",
+    "actor_restarts",
+    "actor_quarantined",
+    "watchdog_stalls",
+    "checkpoint_fallbacks",
+    "hosts_joined",
+    "hosts_lost",
+    "reshards",
+    "epoch",
+    "mean_return",
+    "metrics",
+    "scenarios",
+)
+
+_COUNTER_DEFAULTS = {
+    "param_version": 0,
+    "publishes_sent": 0,
+    "publishes_skipped": 0,
+    "put_blocked": 0,
+    "traj_dropped": 0,
+    "replay_size": 0,
+    "checkpoints_saved": 0,
+    "actor_restarts": 0,
+    "actor_quarantined": 0,
+    "watchdog_stalls": 0,
+    "checkpoint_fallbacks": 0,
+    "hosts_joined": 0,
+    "hosts_lost": 0,
+    "reshards": 0,
+    "epoch": 0,
+}
+
+
+def make_result(*, params: Any, updates: int, frames: int, seconds: float,
+                metrics: dict, mean_return: float = float("nan"),
+                scenarios: dict | None = None, **counters: int) -> dict:
+    """The training result (``RESULT_KEYS``).  Unset counters default to
+    0; a counter outside the schema raises.
+
+        params             final parameters (device tree)
+        updates            learner updates applied
+        frames             env frames generated
+        fps                frames / seconds
+        seconds            wall clock of the fit
+        param_version      params version the actors observe (the init
+                           publish is 1, each update adds one)
+        publishes_sent     actor-slot param copies made
+        publishes_skipped  publishes skipped because the slot's previous
+                           publish was not yet picked up
+        put_blocked        full-queue retry intervals on the actor side
+        traj_dropped       trajectories dropped at shutdown
+        mean_return        mean episode return (NaN when none ended)
+        metrics            learner metrics, means since the last drain
+        scenarios          per-scenario counters of a device-env mix ({})
+    and the counters of paths the port does not run yet (replay,
+    checkpoints, supervision, multi-host), 0 here.
+    """
+    unknown = set(counters) - set(_COUNTER_DEFAULTS)
+    if unknown:
+        raise TypeError(f"unknown result counters: {sorted(unknown)}")
+    out = {
+        "params": params,
+        "updates": int(updates),
+        "frames": int(frames),
+        "fps": float(frames) / seconds if seconds > 0 else 0.0,
+        "seconds": float(seconds),
+        "mean_return": float(mean_return),
+        "metrics": dict(metrics),
+        "scenarios": dict(scenarios) if scenarios else {},
+    }
+    for key, default in _COUNTER_DEFAULTS.items():
+        out[key] = int(counters.get(key, default))
+    return out
+
 
 SERVE_RESULT_KEYS = (
     "outputs",

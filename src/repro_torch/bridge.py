@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.tree import leaves, tree_map
 
 Tree = Any
 
@@ -36,24 +37,6 @@ def tensor_from_numpy(a: np.ndarray, device: str | torch.device) -> torch.Tensor
     return t.to(device)
 
 
-def _map(tree: Tree, fn) -> Tree:
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _leaves(tree: Tree) -> list:
-    if isinstance(tree, dict):
-        return [x for v in tree.values() for x in _leaves(v)]
-    return [tree]
-
-
-def _zip_map(trees: list[Tree], fn) -> Tree:
-    if isinstance(trees[0], dict):
-        return {k: _zip_map([t[k] for t in trees], fn) for k in trees[0]}
-    return fn(trees)
-
-
 def relayout(tree: Tree, num_layers: int, stacked: bool) -> Tree:
     """Stack ``layer_0..layer_{L-1}`` into ``"blocks"`` or split
     ``"blocks"`` into per-layer subtrees; a tree already in the asked
@@ -61,26 +44,30 @@ def relayout(tree: Tree, num_layers: int, stacked: bool) -> Tree:
     tree = dict(tree)
     if stacked and "layer_0" in tree:
         per_layer = [tree.pop(f"layer_{i}") for i in range(num_layers)]
-        tree["blocks"] = _zip_map(per_layer, lambda xs: torch.stack(xs))
+        tree["blocks"] = tree_map(lambda *xs: torch.stack(xs), *per_layer)
     elif not stacked and "blocks" in tree:
         blocks = tree.pop("blocks")
-        n = _leaves(blocks)[0].shape[0]
+        n = leaves(blocks)[0].shape[0]
         if n != num_layers:
             raise ValueError(f"'blocks' holds {n} layers; the config has "
                              f"{num_layers}")
         for i in range(n):
-            tree[f"layer_{i}"] = _map(blocks, lambda x, i=i: x[i].clone())
+            tree[f"layer_{i}"] = tree_map(lambda x, i=i: x[i].clone(), blocks)
     return tree
 
 
-def params_from_jax(tree: Tree, cfg: ArchConfig, *,
+def params_from_jax(tree: Tree, cfg: ArchConfig | None = None, *,
                     device: str | torch.device,
                     stacked: bool | None = None) -> Tree:
-    """The reference's parameter tree (numpy leaves) -> the port's.
+    """The reference's parameter tree (numpy leaves) -> the port's, leaf
+    for leaf on the same paths and shapes: a transformer's tree, or a
+    network's such as ``ConvActorCritic``'s (HWIO conv weights, which the
+    port keeps).
 
-    ``stacked`` picks the layer layout of the result (``Model.stacked``);
-    None keeps the layout the tree came in."""
-    out = _map(tree, lambda a: tensor_from_numpy(a, device))
+    ``stacked`` picks the layer layout of a transformer's tree
+    (``Model.stacked``, with its ``cfg``); None keeps the layout the tree
+    came in."""
+    out = tree_map(lambda a: tensor_from_numpy(a, device), tree)
     if stacked is not None:
         out = relayout(out, cfg.num_layers, stacked)
     return out

@@ -4,11 +4,9 @@ cache and ``flash_decode_paged_cuda`` for a ``(P, bs, K, h)`` page pool
 through a ``(B, nb)`` block table.  They replace the reference's
 ``flash_decode_pallas`` and ``flash_decode_pallas_paged``.
 
-The source is compiled at first use with ``nvcc`` for sm_90a into
-``build/kernels/`` at the root of the checkout, under a name keyed by a
-hash of the source and the flags, and loaded with ctypes.  Nothing here
-runs at import: the CPU tests import this module on machines with no
-``nvcc`` and no card.
+The source is compiled at first use with ``nvcc`` for sm_90a and loaded
+with ctypes (``kernels/_build.py``).  Nothing here runs at import: the CPU
+tests import this module on machines with no ``nvcc`` and no card.
 
 ``LAUNCHES`` counts the launches of each kernel.  A wrapper adds one where
 it launches, and nowhere else; callers that need a count over a run set it
@@ -18,19 +16,13 @@ to 0 first (``reset_launches``).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _build
+
 SOURCE = Path(__file__).with_name("flash_decode.cu")
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"flash_decode": 0, "flash_decode_paged": 0}
 
@@ -43,47 +35,10 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(home) / "bin" / "nvcc"
-    if path.exists():
-        return str(path)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-    return found
-
-
-def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"flash_decode-{key.hexdigest()[:16]}.so"
-
-
-def build() -> tuple[Path, float, str]:
-    """Compile the source unless its library exists.  Returns the path,
-    the seconds the build took (0.0 when it was already built) and what
-    the compiler printed (``-Xptxas -v``: registers, shared memory,
-    spills)."""
-    out = library_path()
-    if out.exists():
-        return out, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.monotonic()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    os.replace(tmp, out)  # atomic: no process loads a half-written file
-    return out, time.monotonic() - t0, proc.stderr
-
-
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()[0]))
+        lib = _build.load(SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.flash_decode_dense.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                            f, i, p]

@@ -118,16 +118,27 @@ def update_kv_cache_chunk(k_cache: torch.Tensor, v_cache: torch.Tensor,
     """Write a (B, C, K, h) chunk at per-row start positions ``pos`` (row
     b's token i lands at slot pos[b] + i).  Slots past the cache are
     dropped, never clamped: a padded prefill tail or an idle row parked at
-    ``pos = max_seq`` must not clobber the cache tail.  (The reference's
-    ``mode="drop"``; the boolean mask here costs one device sync.)"""
+    ``pos = max_seq`` must not clobber the cache tail (the reference's
+    ``mode="drop"``).
+
+    Without a boolean mask, which would read the mask back to the host:
+    each row writes the W = min(C, S) slots of a window [w, w + W) that
+    lies inside the cache and holds every in-range slot of its chunk
+    (w = pos[b] clamped into [0, S - W]).  A window slot takes the chunk's
+    token where the chunk reaches it and its own old value elsewhere, so
+    every (row, slot) is written exactly once and no write races another."""
     B, C = k.shape[0], k.shape[1]
     S = k_cache.shape[1]
-    s_idx = pos.reshape(-1, 1) + torch.arange(C, device=k.device)[None, :]
-    s_idx = s_idx.expand(B, C)
-    b_idx = torch.arange(B, device=k.device)[:, None].expand(B, C)
-    keep = (s_idx >= 0) & (s_idx < S)
-    k_cache[b_idx[keep], s_idx[keep]] = k[keep].to(k_cache.dtype)
-    v_cache[b_idx[keep], s_idx[keep]] = v[keep].to(v_cache.dtype)
+    W = min(C, S)
+    pos = pos.reshape(-1, 1).expand(B, 1).long()
+    slots = pos.clamp(0, S - W) + torch.arange(W, device=k.device)[None, :]
+    i = slots - pos  # the chunk token that lands on each window slot
+    take = ((i >= 0) & (i < C))[..., None, None]
+    i = i.clamp(0, C - 1)[..., None, None].expand(B, W, *k.shape[2:])
+    b_idx = torch.arange(B, device=k.device)[:, None]
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        chunk = torch.gather(new.to(cache.dtype), 1, i)
+        cache[b_idx, slots] = torch.where(take, chunk, cache[b_idx, slots])
     return k_cache, v_cache
 
 

@@ -26,8 +26,10 @@ from repro.kernels.flash_decode.flash_decode import (
     flash_decode_pallas,
     flash_decode_pallas_paged,
 )
+from repro_torch.kernels import _build
 from repro_torch.kernels.flash_decode import flash_decode as fd
 from repro_torch.kernels.flash_decode import ops, ref
+from repro_torch.kernels.vtrace import vtrace as vt
 
 torch.set_num_threads(2)
 
@@ -175,13 +177,22 @@ def test_kernel_wrappers_take_only_cuda_tensors():
     assert fd.LAUNCHES == {"flash_decode": 0, "flash_decode_paged": 0}
 
 
-def test_build_targets_hopper_and_keys_on_source():
-    flags = " ".join(fd.NVCC_FLAGS)
+def test_build_targets_hopper_and_keys_on_source(tmp_path):
+    """Both CUDA sources build through the one loader, for sm_90a, into
+    build/kernels under a name keyed on the source's bytes."""
+    flags = " ".join(_build.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in flags and "-shared" in flags
-    path = fd.library_path()
-    assert path.parent == fd.BUILD_DIR and path.parent.name == "kernels"
-    assert path.parent.parent.name == "build"
-    assert path.name.startswith("flash_decode-") and path.suffix == ".so"
+    assert "fast-math" not in flags
+    paths = {}
+    for source in (fd.SOURCE, vt.SOURCE):
+        path = paths[source.stem] = _build.library_path(source)
+        assert path.parent == _build.BUILD_DIR and path.parent.name == "kernels"
+        assert path.parent.parent.name == "build"
+        assert path.name.startswith(source.stem + "-") and path.suffix == ".so"
+        edited = tmp_path / source.name
+        edited.write_bytes(source.read_bytes() + b"\n")
+        assert _build.library_path(edited).name != path.name
+    assert set(paths) == {"flash_decode", "vtrace"}
 
 
 @pytest.fixture

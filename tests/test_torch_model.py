@@ -223,15 +223,18 @@ def test_dense_cache_updates_drop_out_of_range_like_the_reference():
     cache = rng.standard_normal((B, S, K, h), np.float32)
     k = rng.standard_normal((B, C, K, h), np.float32)
     v = rng.standard_normal((B, C, K, h), np.float32)
-    # row 0 fully in range, row 1 straddles the end, row 2 parked past it
-    pos = np.array([1, 6, S], np.int32)
-    wk, wv = jattn.update_kv_cache_chunk(jnp.asarray(cache), jnp.asarray(cache),
-                                         jnp.asarray(k), jnp.asarray(v),
-                                         jnp.asarray(pos))
-    gk, gv = attn.update_kv_cache_chunk(_t(cache), _t(cache), _t(k), _t(v),
-                                        torch.from_numpy(pos))
-    assert np.array_equal(_np(wk), _np(gk)) and np.array_equal(_np(wv), _np(gv))
-    assert np.array_equal(_np(gk)[2], cache[2])  # the parked row is untouched
+    # row 0 fully in range, row 1 straddles the end, row 2 parked past it;
+    # then every row partly out of range
+    for pos in (np.array([1, 6, S], np.int32), np.array([5, 6, 7], np.int32)):
+        wk, wv = jattn.update_kv_cache_chunk(
+            jnp.asarray(cache), jnp.asarray(cache), jnp.asarray(k),
+            jnp.asarray(v), jnp.asarray(pos))
+        gk, gv = attn.update_kv_cache_chunk(_t(cache), _t(cache), _t(k),
+                                            _t(v), torch.from_numpy(pos))
+        assert np.array_equal(_np(wk), _np(gk))
+        assert np.array_equal(_np(wv), _np(gv))
+        for b in range(B):  # slots before the chunk keep their values
+            assert np.array_equal(_np(gk)[b, :pos[b]], cache[b, :pos[b]])
     # the lockstep path: a scalar start, clamped into range as the
     # reference's dynamic_update_slice does
     for p in (3, S + 5):
