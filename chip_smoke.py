@@ -6,8 +6,9 @@
 Phases, in order; any failure exits non-zero:
 
   1. build    compile every CUDA source of the port (flash_decode.cu,
-              vtrace.cu) from this checkout, one nvcc each, all at once
-              (sm_90a), and print the seconds and the ptxas report;
+              vtrace.cu, flash_attention.cu) from this checkout, one nvcc
+              each, all at once (sm_90a), and print the seconds and the
+              ptxas report;
   2. kernels  hold the dense and the paged flash-decode kernel against
               their plain PyTorch versions at the serving path's head shapes
               (B=8, H=12, K=2, h=128, ragged per-row positions), in float32
@@ -15,9 +16,14 @@ Phases, in order; any failure exits non-zero:
               bit for bit on the gathered cache; time kernel, plain version
               and scaled_dot_product_attention (a yardstick only: the port
               never calls it).  Hold the V-trace kernel against its plain
-              version at the reference's sweep shapes, the learner's
-              (32, 20) and a large (4096, 100), with default and other
-              clips, and time both;
+              version at the reference's sweep shapes, the Sebulba
+              learner's (32, 20), the LLM learner's (2, 2047) and a large
+              (4096, 100), with default and other clips, and time both.
+              Hold the flash-attention kernel against its plain version at
+              the reference's sweep shapes (window included), ragged
+              shapes and the training shape (B 2, T 2048, H 12, K 2,
+              h 128, causal, bf16), and time it, the plain version and
+              scaled_dot_product_attention (a yardstick only) there;
   3. model    a reduced float32 qwen2 on the card (through the kernels)
               against the same weights on the CPU (plain versions);
   4. serve    qwen2-1.5b at full published width, random weights from a seed,
@@ -30,7 +36,13 @@ Phases, in order; any failure exits non-zero:
               CPU (plain version), TF32 off;
   6. sebulba  the examples/sebulba_impala.py configuration trained on the
               card through Sebulba.fit for 200 trajectories, the V-trace
-              launch count read over the run, then a profiled window.
+              launch count read over the run, then a profiled window;
+  7. train    one LLM learner step of the reduced float32 qwen2 on the
+              card against the same step on the CPU, TF32 off; then
+              qwen2-1.5b at full width (bf16, remat per layer) for 5 steps
+              of batch 2 x seq 2048 through launch/train.py, the
+              flash-attention and V-trace launch counts read over the run,
+              then one profiled step.
 
 Then it prints a JSON line of kernel records, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.  It imports
@@ -137,10 +149,11 @@ def build_phase() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_decode import flash_decode as fd
     from repro_torch.kernels.vtrace import vtrace as vt
 
-    sources = [fd.SOURCE, vt.SOURCE]
+    sources = [fd.SOURCE, vt.SOURCE, fa.SOURCE]
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(_build.build, sources))
@@ -257,10 +270,12 @@ def kernel_phase(dev) -> dict:
 
 # ---------------------------------------------------- phase 2, V-trace
 
-# the reference's sweep (tests/test_kernels.py), the learner's (32, 20), a
-# large batch, and ragged edges: several 32-step tiles, T = 1, one row
+# the reference's sweep (tests/test_kernels.py), the Sebulba learner's
+# (32, 20), the LLM learner's (2, 2047) (batch 2 x seq 2048, one step
+# fewer), a large batch, and ragged edges: several 32-step tiles, T = 1,
+# one row
 VTRACE_SHAPES = [(8, 32), (16, 100), (4, 7), (10, 12), (5, 9), (3, 6),
-                 (32, 20), (4096, 100), (33, 33), (64, 1), (1, 200)]
+                 (32, 20), (2, 2047), (4096, 100), (33, 33), (64, 1), (1, 200)]
 VTRACE_CLIPS = [{}, dict(clip_rho=0.9, clip_c=0.8, lambda_=0.95)]
 VTRACE_OPS_PER_ELEMENT = 16  # exp, 2 min, 13 multiply/add (vtrace.cu)
 
@@ -311,7 +326,7 @@ def vtrace_phase(dev) -> dict:
                   f"({B}, {T}) {clips}")
 
     record = {}
-    for B, T in ((32, 20), (4096, 100)):
+    for B, T in ((32, 20), (2, 2047), (4096, 100)):
         xs = inputs(B, T)
         ms = time_ms(lambda: vt.vtrace_cuda(*xs), flush)
         plain_ms = time_ms(lambda: ref.vtrace_ref(*xs), flush)
@@ -319,11 +334,105 @@ def vtrace_phase(dev) -> dict:
         print(f"time   vtrace B={B:5d} T={T:4d} ms={ms:.4f} "
               f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}) "
               "library_ms=- (no single PyTorch call computes V-trace)")
-        if (B, T) == (32, 20):  # the learner's shape on the main path
-            record = dict(max_abs_err=max(errs[B, T, 0], errs[B, T, 1]),
-                          ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=None)
+        nums = dict(max_abs_err=max(errs[B, T, 0], errs[B, T, 1]), ms=ms,
+                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        if (B, T) == (32, 20):  # the Sebulba learner's shape
+            record = dict(nums, library_ms=None)
+        elif (B, T) == (2, 2047):  # the LLM learner's shape
+            record["train_shape"] = dict(nums, B=B, T=T)
     return {"vtrace": record}
+
+
+# ------------------------------------------------ phase 2, flash attention
+
+# (B, T, S, H, K, h, causal, window, softcap): the reference's sweep
+# (tests/test_kernels.py:27-36), ragged shapes, then the training shape
+FA_SHAPES = [
+    (2, 128, 128, 4, 2, 64, True, 0, 0.0),
+    (1, 256, 256, 4, 4, 32, True, 0, 0.0),
+    (2, 128, 128, 4, 1, 64, False, 0, 0.0),
+    (1, 256, 256, 2, 2, 64, True, 64, 0.0),
+    (1, 128, 128, 8, 2, 128, True, 0, 0.0),
+    (1, 100, 100, 4, 2, 64, True, 0, 30.0),
+    (1, 100, 100, 4, 2, 64, False, 0, 0.0),
+    (2, 77, 300, 4, 2, 256, False, 0, 0.0),
+    (2, 2047, 2047, 12, 2, 128, True, 0, 0.0),
+]
+FA_TRAIN = (2, 2048, 2048, 12, 2, 128, True, 0, 0.0)  # qwen2-1.5b, 2 x 2048
+FA_LSE_TOL = 1e-4  # float32 sums over up to 2048 keys in another order
+
+
+def flash_attention_bound(B, T, S, H, K, h, causal, item) -> tuple[float, str]:
+    """Least time for the forward: q, k, v read once, out and lse written
+    once, against 4 * h flops (QK^T and PV) per (query, key) pair the mask
+    keeps, over the bf16 (or f32) peak."""
+    pairs = sum(min(t + 1, S) for t in range(T)) if causal else T * S
+    t_ops = 4 * h * B * H * pairs / PEAK_OPS_PER_S[
+        "torch.bfloat16" if item == 2 else "torch.float32"]
+    nbytes = item * (2 * B * T * H * h + 2 * B * S * K * h) + 4 * B * H * T
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def flash_attention_phase(dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+
+    def inputs(B, T, S, H, K, h, dtype):
+        return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+                for shape in ((B, T, H, h), (B, S, K, h), (B, S, K, h))]
+
+    train_err = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = TOL[str(dtype)]
+        for B, T, S, H, K, h, causal, window, cap in FA_SHAPES + [FA_TRAIN]:
+            q, k, v = inputs(B, T, S, H, K, h, dtype)
+            out, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window, softcap=cap)
+            want, want_lse = ref.flash_attention_ref(
+                q, k, v, causal=causal, window=window, softcap=cap)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            lse_err = (lse - want_lse).abs().max().item()
+            print(f"flash  {str(dtype):15s} B={B} T={T:4d} S={S:4d} H={H:2d} "
+                  f"K={K} h={h:3d} causal={causal:d} window={window:3d} "
+                  f"softcap={cap:4.1f} max_abs_err={err:.3e} (tol {tol}) "
+                  f"lse_err={lse_err:.3e} (tol {FA_LSE_TOL})")
+            check(bool(torch.isfinite(out).all() and torch.isfinite(lse).all()),
+                  "flash attention output not finite")
+            check(err <= tol, f"flash kernel off by {err} at {B, T, S, H, K, h}"
+                  f" {dtype}")
+            check(lse_err <= FA_LSE_TOL, f"flash kernel lse off by {lse_err}")
+            if (B, T, S, H, K, h) == FA_TRAIN[:6] and dtype == torch.bfloat16:
+                train_err = err
+
+    B, T, S, H, K, h, causal, _, _ = FA_TRAIN
+    q, k, v = inputs(B, T, S, H, K, h, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def sdpa():  # a yardstick, timed only: the port never calls it
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    lib_err = (sdpa().transpose(1, 2).float()
+               - fa.flash_attention_cuda(q, k, v)[0].float()).abs().max().item()
+    ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v), flush)
+    plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), flush)
+    library_ms = time_ms(sdpa, flush)
+    bound_ms, bound_by = flash_attention_bound(B, T, S, H, K, h, causal, 2)
+    print(f"time   flash_attention B={B} T={T} H={H} K={K} h={h} causal bf16 "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
+          f"bound_ms={bound_ms:.5f} ({bound_by}); sdpa vs kernel "
+          f"max_abs_diff={lib_err:.3e}")
+    return {"flash_attention": dict(max_abs_err=train_err, ms=ms,
+                                    plain_ms=plain_ms, bound_ms=bound_ms,
+                                    bound_by=bound_by, library_ms=library_ms)}
 
 
 # ------------------------------------------------------------ phase 3
@@ -753,6 +862,210 @@ def sebulba_trace(dev) -> None:
               f"{e.count:6d}x  {e.key[:90]}")
 
 
+# ------------------------------------------------------------ phase 7
+
+
+def train_parity(dev) -> None:
+    """One LLM learner step of the reduced float32 qwen2 on the card
+    (flash-attention and V-trace kernels) against the same step on the CPU
+    (plain versions), from the same params and batch, TF32 off.
+
+    Metrics within 1e-4, gradients within 1e-5 + 1e-4 * |g| (sums in
+    another order); Adam's first step is lr * g / (|g| + 1e-8), so the
+    updated params must agree within 1e-5 where |g| >= 1e-6, and the
+    largest difference elsewhere is printed beside it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.base import get_reduced_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.vtrace import vtrace as vt
+    from repro_torch.launch import steps
+    from repro_torch.launch.specs import make_batch
+    from repro_torch.models import Model
+
+    cpu = torch.device("cpu")
+    cfg = dataclasses.replace(get_reduced_config("qwen2-1.5b"),
+                              param_dtype="float32")
+    model = Model(cfg)
+    params = model.init(torch.Generator().manual_seed(7), device=cpu)
+    batch = make_batch(cfg, 2, 100, torch.Generator().manual_seed(8),
+                       device=cpu)
+    card_params, card_batch = _tree_to(params, dev), _tree_to(batch, dev)
+    hp = steps.TrainHParams()
+    grad_fn = steps.make_grad_fn(model, hp)
+    opt = steps.make_optimizer(hp)
+    step = steps.make_train_step(model, opt, hp)
+    with full_f32():
+        g_cpu, m_cpu = grad_fn(params, batch)
+        fa.reset_launches()
+        vt.reset_launches()
+        g_card, m_card = grad_fn(card_params, card_batch)
+        torch.cuda.synchronize()
+        launched = (fa.LAUNCHES["flash_attention"], vt.LAUNCHES["vtrace"])
+        step(params, opt.init(params), batch)
+        step(card_params, opt.init(card_params), card_batch)
+        torch.cuda.synchronize()
+    g_cpu, g_card = _leaves(g_cpu), [g.to(cpu) for g in _leaves(g_card)]
+    g_err = max((a - b).abs().max().item() for a, b in zip(g_card, g_cpu))
+    g_excess = max(((a - b).abs() - 1e-4 * b.abs()).max().item()
+                   for a, b in zip(g_card, g_cpu))
+    m_err = max(abs(m_card[k].item() - m_cpu[k].item()) for k in m_cpu)
+    diffs = [(a.to(cpu) - b).abs()
+             for a, b in zip(_leaves(card_params), _leaves(params))]
+    well = [g.abs() >= 1e-6 for g in g_cpu]
+    p_err = max(d[w].max().item() if w.any() else 0.0
+                for d, w in zip(diffs, well))
+    p_all = max(d.max().item() for d in diffs)
+    print(f"train  one step, reduced qwen2 f32 (B 2, T 100), card vs cpu, "
+          f"TF32 off: metrics max_abs_err={m_err:.3e} (tol 1e-4) "
+          f"grads max_abs_err={g_err:.3e} (tol 1e-5 + 1e-4*|g|) "
+          f"params max_abs_err={p_err:.3e} where |g| >= 1e-6 (tol 1e-5), "
+          f"{p_all:.3e} over all; flash_attention launches={launched[0]} "
+          f"vtrace launches={launched[1]}")
+    check(launched == (2 * cfg.num_layers, 1),
+          f"card grad step launched (flash_attention, vtrace) {launched}")
+    check(m_err <= 1e-4, f"card and cpu loss metrics differ by {m_err}")
+    check(g_excess <= 1e-5, f"card and cpu gradients differ by {g_err}")
+    check(p_err <= 1e-5, f"card and cpu train steps differ by {p_err}")
+
+
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 2, 2048
+
+
+def train_phase(dev) -> dict:
+    """qwen2-1.5b at full width for TRAIN_STEPS steps through
+    launch/train.py; returns the launches of the run."""
+    import math
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_decode import flash_decode as fd
+    from repro_torch.kernels.vtrace import ref as vt_ref
+    from repro_torch.kernels.vtrace import vtrace as vt
+    from repro_torch.launch import train
+
+    train_parity(dev)
+
+    plain_on_card = {"flash_attention": 0, "vtrace": 0}
+    plains = {"flash_attention": (fa_ref, "flash_attention_ref"),
+              "vtrace": (vt_ref, "vtrace_ref")}
+    saved = {name: getattr(mod, attr) for name, (mod, attr) in plains.items()}
+
+    def counted(name):
+        def fn(x, *args, **kw):  # ops reaches them as ref.<name>
+            plain_on_card[name] += x.is_cuda
+            return saved[name](x, *args, **kw)
+        return fn
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, (mod, attr) in plains.items():
+        setattr(mod, attr, counted(name))
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        vt.reset_launches()
+        fd.reset_launches()
+        out = train.train("qwen2-1.5b", full=True, steps=TRAIN_STEPS,
+                          batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev)
+        torch.cuda.synchronize()
+        launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
+                    "vtrace": vt.LAUNCHES["vtrace"]}
+        other = dict(fd.LAUNCHES)
+    finally:
+        for name, (mod, attr) in plains.items():
+            setattr(mod, attr, saved[name])
+    peak = torch.cuda.max_memory_allocated()
+    cfg = out["cfg"]
+    secs = out["step_seconds"]
+    steady = statistics.median(secs[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    want_fa = 2 * cfg.num_layers * cfg.microbatches * TRAIN_STEPS
+    print(f"train  {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
+          f"H={cfg.num_heads}/K={cfg.num_kv_heads} h={cfg.head_dim} "
+          f"d_ff={cfg.d_ff} V={cfg.vocab_size} {cfg.param_dtype} "
+          f"remat={cfg.remat} microbatches={cfg.microbatches}: "
+          f"{out['n_params']:,} params, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}")
+    print(f"train  step_ms={[round(1e3 * t, 3) for t in secs]} "
+          f"steady_step_ms={1e3 * steady:.3f} (median of steps 1-"
+          f"{TRAIN_STEPS - 1}) steady_tokens_per_s={tokens / steady:.2f} "
+          f"tokens_per_s_all_steps={out['tokens_per_s']:.2f} "
+          f"peak_mem={peak / 2**30:.3f} GiB (of which {base / 2**30:.3f} GiB "
+          f"held before the run)")
+    print(f"train  metrics {json.dumps(out['metrics'])}")
+    print(f"train  launches flash_attention={launches['flash_attention']} "
+          f"(expected 2 x {cfg.num_layers} layers x {cfg.microbatches} "
+          f"microbatches x {TRAIN_STEPS} steps = {want_fa}) "
+          f"vtrace={launches['vtrace']} (expected {TRAIN_STEPS}) "
+          f"plain_flash_attention_on_card={plain_on_card['flash_attention']} "
+          f"plain_vtrace_on_card={plain_on_card['vtrace']}")
+    check(all(math.isfinite(v) for m in out["metrics"] for v in m.values()),
+          "non-finite training metrics")
+    # random init: the first step's cross-entropy is that of a near-uniform
+    # prediction over the vocabulary
+    ce0 = out["metrics"][0]["ce"]
+    check(abs(ce0 - math.log(cfg.vocab_size)) < 0.5,
+          f"first-step ce {ce0} far from log(V) = {math.log(cfg.vocab_size)}")
+    check(launches["flash_attention"] == want_fa,
+          f"flash_attention launches {launches['flash_attention']} != {want_fa}")
+    check(launches["vtrace"] == TRAIN_STEPS,
+          f"vtrace launches {launches['vtrace']} != {TRAIN_STEPS}")
+    check(not any(plain_on_card.values()),
+          f"a plain version ran on the card: {plain_on_card}")
+    check(not any(other.values()), f"flash-decode launched: {other}")
+    check(all(bool(torch.isfinite(x).all()) for x in _leaves(out["params"])),
+          "trained params not finite")
+
+    batch = train.batch_for_step(cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                                 dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, m = out["step"](out["params"], out["opt_state"], batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    print(f"trace  profiled train step: wall {wall:.4f} s, device busy "
+          f"{busy:.4f} s = {busy / wall:.4f} of wall (profiler on), loss "
+          f"{m['loss'].item():.4f}")
+    kinds = {"flash_attention kernel": ("flash_fwd_kernel",),
+             "vtrace kernel": ("vtrace_kernel",),
+             "GEMM": ("gemm", "nvjet", "xmma")}
+    spent = {name: [0.0, 0] for name in kinds}
+    for e in kernels:
+        for name, keys in kinds.items():
+            if any(k in e.key for k in keys):
+                spent[name][0] += e.self_device_time_total / 1e3
+                spent[name][1] += e.count
+                break
+    rest = busy * 1e3 - sum(ms for ms, _ in spent.values())
+    print("trace  device ms by kind: " + ", ".join(
+        f"{name} {ms:.3f} ({n}x)" for name, (ms, n) in spent.items())
+        + f", other {rest:.3f}")
+    for e in events:  # the device time of kernels launched under each op
+        if e.key in ("_FlashAttention", "_FlashAttentionBackward"):
+            print(f"trace  {e.key}: {e.count}x, device "
+                  f"{e.device_time_total / 1e3:.3f} ms in kernels launched "
+                  "under it")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"trace    device {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+    host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
+        print(f"trace    host   {e.self_cpu_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x  {e.key[:90]}")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -778,28 +1091,47 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
-    build_phase()
-    records = kernel_phase(dev)
-    records.update(vtrace_phase(dev))
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        print(f"phase  {name}: {time.monotonic() - t0:.1f} s")
+        return out
+
+    timed("build", build_phase)
+    records = timed("kernels (flash decode)", kernel_phase, dev)
+    records.update(timed("kernels (V-trace)", vtrace_phase, dev))
+    records.update(timed("kernels (flash attention)", flash_attention_phase,
+                         dev))
     with full_f32():
-        model_phase(dev)
-    launches = serve_phase(dev)
-    learner_phase(dev)
-    launches["vtrace"] = sebulba_phase(dev)
+        timed("model", model_phase, dev)
+    launches = timed("serve", serve_phase, dev)
+    timed("learner", learner_phase, dev)
+    by_path = {
+        "flash_decode": {"dense_serve": launches["dense"]},
+        "flash_decode_paged": {"paged_serve": launches["paged"]},
+        "vtrace": {"sebulba": timed("sebulba", sebulba_phase, dev)},
+    }
+    trained = timed("train", train_phase, dev)
+    by_path["vtrace"]["train"] = trained["vtrace"]
+    by_path["flash_attention"] = {"train": trained["flash_attention"]}
 
     kernels = []
-    for name, source, replaces, path in (
+    for name, source, replaces in (
         ("flash_decode", "src/repro_torch/kernels/flash_decode/flash_decode.cu",
-         "src/repro/kernels/flash_decode/flash_decode.py:103", "dense"),
+         "src/repro/kernels/flash_decode/flash_decode.py:103"),
         ("flash_decode_paged",
          "src/repro_torch/kernels/flash_decode/flash_decode.cu",
-         "src/repro/kernels/flash_decode/flash_decode.py:157", "paged"),
+         "src/repro/kernels/flash_decode/flash_decode.py:157"),
         ("vtrace", "src/repro_torch/kernels/vtrace/vtrace.cu",
-         "src/repro/kernels/vtrace/vtrace.py:60", "vtrace"),
+         "src/repro/kernels/vtrace/vtrace.py:60"),
+        ("flash_attention",
+         "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+         "src/repro/kernels/flash_attention/flash_attention.py:91"),
     ):
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[path],
-                        **records[name]})
+                        "replaces": replaces,
+                        "launches": sum(by_path[name].values()),
+                        "launches_by_path": by_path[name], **records[name]})
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

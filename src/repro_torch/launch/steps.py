@@ -1,5 +1,18 @@
-"""Serve-step factories and seeded sampling: the port of ``sample_tokens``,
-``request_keys`` and ``make_serve_step`` from ``repro/launch/steps.py``.
+"""Train, prefill and serve steps: the port of ``repro/launch/steps.py``.
+
+``make_train_step`` is the Sebulba-learner update at LLM scale: the
+backbone takes token trajectories and optimizes
+
+    L = LM cross-entropy + rl_weight * V-trace actor-critic terms
+        + aux_weight * aux (0 for the dense family)
+
+through the same V-trace op the small-scale Sebulba learner uses, with
+gradient accumulation over ``cfg.microbatches`` and per-layer remat from
+the config.  Gradients are taken with ``torch.autograd.grad`` over the
+param leaves; the update is applied to the params IN PLACE (see
+``optim.apply_updates``).
+
+Sampling (``sample_tokens``, ``request_keys``, ``make_serve_step``):
 
 Sampling keys are counter-based: ``request_keys`` hashes
 ``(seed, request id, token index)`` into one 32-bit key per row, and
@@ -14,11 +27,121 @@ agree on sampled tokens only at temperature 0 (greedy).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable
 
 import torch
 
+from repro_torch import optim
+from repro_torch.rl import losses
+from repro_torch.tree import leaves, tree_map, unflatten
+
 _M32 = 0xFFFFFFFF
+METRIC_KEYS = ("loss", "ce", "rl", "aux", "entropy")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainHParams:
+    learning_rate: float = 3e-4
+    rl_weight: float = 0.1
+    aux_weight: float = 0.01
+    entropy_cost: float = 0.001
+    value_cost: float = 0.5
+    clip_norm: float = 1.0
+
+
+def make_optimizer(hp: TrainHParams) -> optim.GradientTransformation:
+    return optim.adam(hp.learning_rate, clip_norm=hp.clip_norm)
+
+
+def make_loss_fn(model, hp: TrainHParams) -> Callable:
+    """loss_fn(params, batch) -> (total, metrics of 0-d tensors)."""
+
+    def loss_fn(params, batch):
+        logits, values, aux = model.forward(params, batch)
+        tokens = batch["tokens"]
+        # next-token prediction: position t predicts token t+1
+        logits_t = logits[:, :-1]
+        targets = tokens[:, 1:].long()
+        # CE as logsumexp - target logit: no second (B, T, V) log-softmax
+        lse = torch.logsumexp(logits_t, dim=-1)
+        tgt = torch.gather(logits_t, -1, targets[..., None])[..., 0]
+        ce = torch.mean(lse - tgt)
+        # V-trace actor-critic on the same trajectory (actions = next tokens)
+        out = losses.impala_loss(
+            logits_t, values[:, :-1], targets,
+            batch["behaviour_logp"][:, 1:], batch["rewards"][:, 1:],
+            batch["discounts"][:, 1:], values[:, -1],
+            entropy_cost=hp.entropy_cost, value_cost=hp.value_cost,
+        )
+        total = ce + hp.rl_weight * out.total + hp.aux_weight * aux
+        metrics = {"loss": total, "ce": ce, "rl": out.total, "aux": aux,
+                   "entropy": out.entropy}
+        return total, metrics
+
+    return loss_fn
+
+
+def make_grad_fn(model, hp: TrainHParams = TrainHParams()) -> Callable:
+    """grad_fn(params, batch) -> (grads: a tree like params, in the
+    params' dtypes; metrics: detached 0-d tensors)."""
+    loss_fn = make_loss_fn(model, hp)
+
+    def grad_fn(params, batch):
+        live = [p.detach().requires_grad_() for p in leaves(params)]
+        with torch.enable_grad():
+            total, metrics = loss_fn(unflatten(params, live), batch)
+            grads = torch.autograd.grad(total, live)
+        return (unflatten(params, list(grads)),
+                {k: v.detach() for k, v in metrics.items()})
+
+    return grad_fn
+
+
+def make_train_step(model, optimizer: optim.GradientTransformation,
+                    hp: TrainHParams = TrainHParams()) -> Callable:
+    """train_step(params, opt_state, batch) -> (params, opt_state, metrics).
+    With ``cfg.microbatches`` = n > 1 the batch is cut into n equal
+    slices of rows, their gradients and metrics summed in float32 and
+    divided by n, as the reference's scan does."""
+    grad_fn = make_grad_fn(model, hp)
+    micro = model.cfg.microbatches
+
+    def train_step(params, opt_state, batch):
+        if micro > 1:
+            rows = batch["tokens"].shape[0]
+            if rows % micro:
+                raise ValueError(f"batch of {rows} rows does not split into "
+                                 f"{micro} microbatches")
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            metrics = dict.fromkeys(METRIC_KEYS, 0.0)
+            for mb in zip(*(x.chunk(micro) for x in batch.values())):
+                g, m = grad_fn(params, dict(zip(batch, mb)))
+                grads = tree_map(lambda a, b: a + b.float(), grads, g)
+                metrics = {k: metrics[k] + m[k] for k in METRIC_KEYS}
+            grads = tree_map(lambda g: g / micro, grads)
+            metrics = {k: v / micro for k, v in metrics.items()}
+        else:
+            grads, metrics = grad_fn(params, batch)
+        with torch.no_grad():
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            params = optim.apply_updates(params, updates)
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def make_prefill_step(model, hp: TrainHParams = TrainHParams()) -> Callable:
+    """Inference prefill: the full forward, the last position's logits and
+    value."""
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        logits, values, _ = model.forward(params, batch)
+        return logits[:, -1], values[:, -1]
+
+    return prefill_step
 
 
 def _mix32(x: torch.Tensor) -> torch.Tensor:

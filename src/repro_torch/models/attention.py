@@ -1,11 +1,13 @@
-"""GQA attention for serving: the port of the decode and prefill parts of
-``repro/models/attention.py``.
+"""GQA attention: the port of the training forward (``full_attention``),
+decode and prefill parts of ``repro/models/attention.py``.
 
-Single-token decode goes through ``kernels/flash_decode`` (the Hopper
-kernels on the card); chunked prefill is ``chunk_decode_attention`` here.
-The cache updates write IN PLACE and return the same tensors, where the
-reference returns new arrays: the port keeps one cache alive instead of
-two.
+``full_attention`` runs its forward through ``kernels/flash_attention``
+(the Hopper kernel on the card) and its backward as the reference's
+flash-attention VJP in plain PyTorch.  Single-token decode goes through
+``kernels/flash_decode`` (the Hopper kernels on the card); chunked prefill
+is ``chunk_decode_attention`` here.  The cache updates write IN PLACE and
+return the same tensors, where the reference returns new arrays: the port
+keeps one cache alive instead of two.
 
 ``decode_attention`` (the reference's jnp decode, which casts the
 probabilities to the cache dtype before the PV product) is not ported:
@@ -18,7 +20,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import layers
 from repro_torch.param import ParamBuilder, fan_in_init, zeros_init
 
@@ -75,6 +79,95 @@ def output_project(params, out: torch.Tensor) -> torch.Tensor:
     """out: (B, T, H, h) -> (B, T, D)."""
     wo = params["wo"].to(out.dtype)
     return out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _fa_bwd(q, k, v, out, lse, do, causal: bool, chunk: int,
+            softcap: float):
+    """Flash-attention backward, line for line the reference's ``_fa_bwd``:
+    recompute p per KV chunk from (q, k, lse) instead of saving the (T, S)
+    probabilities, so O(T * chunk) memory lives at once.
+
+        p    = exp(q k^T * s - lse)
+        dv   = p^T do
+        dp   = do v^T
+        ds   = p * (dp - delta),  delta_t = sum_h do_t * out_t
+        dq  += ds k * s ;  dk  = ds^T q * s
+    """
+    B, T, H, h = q.shape
+    S, K = k.shape[1], k.shape[2]
+    G = H // K
+    sm = h**-0.5
+    chunk = min(chunk, S)
+    n_chunks = -(-S // chunk)
+    pad = n_chunks * chunk - S
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qg = q.reshape(B, T, K, G, h).float()  # unscaled
+    dog = do.reshape(B, T, K, G, h).float()
+    outg = out.reshape(B, T, K, G, h).float()
+    delta = torch.einsum("btkgh,btkgh->bkgt", dog, outg)  # (B, K, G, T)
+    lse = lse.reshape(B, K, G, T)
+    q_pos = torch.arange(T, device=q.device)
+    dq = torch.zeros((B, T, K, G, h), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for i in range(n_chunks):
+        kb = k[:, i * chunk:(i + 1) * chunk].float()
+        vb = v[:, i * chunk:(i + 1) * chunk].float()
+        logits = sm * torch.einsum("btkgh,bskh->bkgts", qg, kb)
+        if softcap > 0:
+            tanh_arg = logits / softcap
+            logits_capped = softcap * torch.tanh(tanh_arg)
+        else:
+            logits_capped = logits
+        k_pos = i * chunk + torch.arange(chunk, device=q.device)
+        valid = k_pos < S
+        if causal:
+            mask = valid[None, :] & (k_pos[None, :] <= q_pos[:, None])
+        else:
+            mask = valid[None, :]
+        p = torch.where(mask, torch.exp(logits_capped - lse[..., None]), 0.0)
+        dv = torch.einsum("bkgts,btkgh->bskh", p, dog)
+        dp = torch.einsum("btkgh,bskh->bkgts", dog, vb)
+        ds = p * (dp - delta[..., None])
+        if softcap > 0:  # chain rule through the softcap tanh
+            ds = ds * (1.0 - torch.tanh(tanh_arg) ** 2)
+        dq = dq + sm * torch.einsum("bkgts,bskh->btkgh", ds, kb)
+        dks.append(sm * torch.einsum("bkgts,btkgh->bskh", ds, qg))
+        dvs.append(dv)
+    dk = torch.cat(dks, dim=1)[:, :S]
+    dv = torch.cat(dvs, dim=1)[:, :S]
+    return dq.reshape(B, T, H, h).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``_fa`` custom VJP: the forward saves
+    (q, k, v, out, lse) as ``_fa_fwd`` does; the backward is ``_fa_bwd``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, chunk, softcap):
+        out, lse = fa_ops.flash_attention(q, k, v, causal=causal,
+                                          softcap=softcap, chunk=chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, chunk, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _fa_bwd(q, k, v, out, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = True, chunk: int = 1024,
+                   softcap: float = 0.0) -> torch.Tensor:
+    """Online-softmax attention with a flash-attention backward that
+    recomputes the probabilities per KV chunk (O(T * chunk) memory, not
+    O(T * S)).  q: (B, T, H, h); k, v: (B, S, K, h) -> (B, T, H, h).
+    ``chunk`` is the backward's KV chunk and the CPU forward's; the
+    kernel's tile is its own."""
+    return _FlashAttention.apply(q, k, v, causal, chunk, softcap)
 
 
 def chunk_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

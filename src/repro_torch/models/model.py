@@ -1,9 +1,10 @@
-"""The serving model API for the dense family: the port of
-``repro/models/model.py`` (``init``, ``init_cache``, ``init_paged_cache``,
-``decode_step``, ``prefill_step``).
+"""The model API for the dense family: the port of
+``repro/models/model.py`` (``init``, ``forward``, ``init_cache``,
+``init_paged_cache``, ``decode_step``, ``prefill_step``).
 
     model = Model(cfg)
     params = model.init(torch.Generator("cuda").manual_seed(0))
+    logits, values, aux = model.forward(params, {"tokens": tokens})
     cache = model.init_paged_cache(num_blocks, block_size)
     logits, values, cache = model.decode_step(params, cache, tokens, pos,
                                               block_tables)
@@ -12,8 +13,10 @@ The parameter tree has the reference's paths, shapes and dtypes, in
 either of its two layer layouts: stacked (``"blocks"`` with a leading
 layer axis, the default for uniform global attention) or one
 ``"layer_{i}"`` subtree per layer (``unroll=True``).  Layers run as a
-Python loop over per-layer views in both.  ``decode_step`` and
-``prefill_step`` write the cache in place and return it.
+Python loop over per-layer views in both.  ``forward`` wraps each layer in
+``torch.utils.checkpoint`` when ``cfg.remat != "none"`` (the reference's
+``jax.checkpoint``).  ``decode_step`` and ``prefill_step`` write the cache
+in place and return it.
 
 What the port does not run yet raises ``ValueError`` at construction:
 families other than dense, sliding-window layers, logit softcap,
@@ -25,6 +28,7 @@ from __future__ import annotations
 from typing import Any, Iterator
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -55,10 +59,14 @@ def _unsupported(cfg: ArchConfig, kinds: list[str]) -> list[str]:
     return out
 
 
-def _index(tree: Params, i: int) -> Params:
+def _unstack(tree: Params, n: int) -> list:
+    """The n per-layer views of a tree whose leaves have a leading layer
+    axis: each leaf is unbound once, so writes to a view land in the tree
+    and a leaf's gradient is one stack of the layers' gradients."""
     if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    return tree[i]
+        per = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: per[k][i] for k in per} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 class Model:
@@ -134,14 +142,17 @@ class Model:
 
     # ---------------------------------------------------------------- steps
 
+    def _per_layer(self, tree: Params) -> list:
+        """Per-layer subtrees of a params or cache tree, in either layer
+        layout (views of the stacked tensors)."""
+        if self.stacked:
+            return _unstack(tree["blocks"], self.cfg.num_layers)
+        return [tree[f"layer_{i}"] for i in range(self.cfg.num_layers)]
+
     def _layers(self, params: Params, cache: Params) -> Iterator:
-        """(layer params, layer cache) per layer; views of the stacked
-        tensors, so cache writes land in ``cache``."""
-        for i in range(self.cfg.num_layers):
-            if self.stacked:
-                yield _index(params["blocks"], i), _index(cache["blocks"], i)
-            else:
-                yield params[f"layer_{i}"], cache[f"layer_{i}"]
+        """(layer params, layer cache) per layer; cache writes land in
+        ``cache``."""
+        return zip(self._per_layer(params), self._per_layer(cache))
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         return layers.embed(params["embedding"], tokens.long(),
@@ -153,6 +164,26 @@ class Model:
         logits = layers.unembed(params["embedding"], x)
         values = (x @ params["value_head"]["w"].to(x.dtype))[..., 0].float()
         return logits, values
+
+    def forward(self, params: Params, batch: dict):
+        """batch["tokens"] (B, T) -> (logits (B,T,V) f32, values (B,T) f32,
+        aux 0-d f32: the dense family has no auxiliary loss)."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], device=x.device)
+
+        def layer(p, h):
+            h = tf.attn_sublayer(p, h, positions, cfg)
+            return tf.ffn_sublayer(p, h, cfg)
+
+        for p in self._per_layer(params):
+            if cfg.remat != "none":
+                x = checkpoint(layer, p, x, use_reentrant=False)
+            else:
+                x = layer(p, x)
+        logits, values = self._heads(params, x)
+        return logits, values, torch.zeros((), dtype=torch.float32,
+                                           device=x.device)
 
     def decode_step(self, params: Params, cache: Params,
                     tokens: torch.Tensor, pos,

@@ -1,7 +1,10 @@
-"""Decoder sublayers for serving the dense family: the port of the decode,
-prefill and layer-pattern parts of ``repro/models/transformer.py``.
+"""Decoder sublayers of the dense family: the port of the training
+forward, decode, prefill and layer-pattern parts of
+``repro/models/transformer.py``.
 
-Single-token decode goes through ``kernels.flash_decode`` (the Hopper
+The training forward (``attn_sublayer``) attends with
+``attention.full_attention`` (its forward is ``kernels.flash_attention``);
+single-token decode goes through ``kernels.flash_decode`` (the Hopper
 kernels for CUDA tensors, their plain versions for CPU tensors); chunked
 prefill attends with ``attention.chunk_decode_attention``.  Cache updates
 happen in place (see ``models/attention.py``).
@@ -33,6 +36,26 @@ def init_attn_layer(b: ParamBuilder, cfg: ArchConfig) -> None:
 def init_ffn_layer(b: ParamBuilder, cfg: ArchConfig) -> None:
     layers.init_rms_norm(b, "ffn_norm", cfg.d_model)
     layers.init_mlp(b, "mlp", cfg.d_model, cfg.d_ff_dense or cfg.d_ff)
+
+
+def attn_sublayer(p: Params, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ArchConfig, *, window: int = 0,
+                  theta: float | None = None,
+                  causal: bool = True) -> torch.Tensor:
+    """Pre-norm self-attention over a whole (B, T, D) sequence at
+    ``positions`` (T,), residual added."""
+    if window:
+        raise NotImplementedError(
+            "sliding-window attention (sliding_window_attention) is not "
+            "ported yet: ROADMAP Queue 1 #9")
+    h = layers.rms_norm(p["attn_norm"], x, cfg.rms_norm_eps)
+    q, k, v = attn.qkv_project(
+        p["attn"], h, positions=positions if cfg.pos_embed == "rope" else None,
+        rope_theta=theta if theta is not None else cfg.rope_theta,
+    )
+    out = attn.full_attention(q, k, v, causal=causal,
+                              softcap=cfg.attn_logit_softcap)
+    return x + attn.output_project(p["attn"], out)
 
 
 def _rope_positions(pos, width: int, device: torch.device) -> torch.Tensor:

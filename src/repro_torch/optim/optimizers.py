@@ -55,6 +55,24 @@ def scale(factor: float) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
+def scale_by_schedule(
+        schedule: Callable[[torch.Tensor], torch.Tensor]
+) -> GradientTransformation:
+    """g * schedule(count), count starting at 0 and kept as a () int32
+    tensor on the params' device, so the schedule never reads back to the
+    host."""
+
+    def init(params):
+        return torch.zeros((), dtype=torch.int32,
+                           device=leaves(params)[0].device)
+
+    def update(grads, count, params=None):
+        s = schedule(count)
+        return tree_map(lambda g: g * s.to(g.dtype), grads), count + 1
+
+    return GradientTransformation(init, update)
+
+
 class AdamState(NamedTuple):
     count: torch.Tensor  # () int32, on the params' device
     mu: Tree
@@ -150,16 +168,26 @@ def sgd(lr: float, momentum: float = 0.0) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
-def adam(lr: float, b1=0.9, b2=0.999, eps=1e-8,
+Schedule = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _scale_by_lr(lr: float | Schedule) -> GradientTransformation:
+    """-lr, a float or a schedule of the update count."""
+    if callable(lr):
+        return scale_by_schedule(lambda c: -lr(c))
+    return scale(-lr)
+
+
+def adam(lr: float | Schedule, b1=0.9, b2=0.999, eps=1e-8,
          clip_norm: float = 0.0) -> GradientTransformation:
     parts = [clip_by_global_norm(clip_norm)] if clip_norm else []
-    return chain(*parts, scale_by_adam(b1, b2, eps), scale(-lr))
+    return chain(*parts, scale_by_adam(b1, b2, eps), _scale_by_lr(lr))
 
 
-def rmsprop(lr: float, decay=0.99, eps=1e-8,
+def rmsprop(lr: float | Schedule, decay=0.99, eps=1e-8,
             clip_norm: float = 0.0) -> GradientTransformation:
     parts = [clip_by_global_norm(clip_norm)] if clip_norm else []
-    return chain(*parts, scale_by_rms(decay, eps), scale(-lr))
+    return chain(*parts, scale_by_rms(decay, eps), _scale_by_lr(lr))
 
 
 def apply_updates(params: Tree, updates: Tree) -> Tree:
@@ -172,3 +200,21 @@ def apply_updates(params: Tree, updates: Tree) -> Tree:
         return p.copy_(p.float() + u.float())
 
     return tree_map(add, params, updates)
+
+
+# -- schedules ---------------------------------------------------------------
+
+
+def warmup_cosine(base: float, warmup: int, total_steps: int) -> Schedule:
+    """Linear warm-up from 0 over ``warmup`` counts, then a cosine from
+    ``base`` to 0 at ``total_steps``; a function of a () count tensor."""
+
+    def schedule(count: torch.Tensor) -> torch.Tensor:
+        c = count.float()
+        warm = c / max(warmup, 1)
+        frac = torch.clamp((c - warmup) / max(total_steps - warmup, 1),
+                           0.0, 1.0)
+        cos = 0.5 * (1 + torch.cos(torch.pi * frac))
+        return base * torch.where(c < warmup, warm, cos)
+
+    return schedule
