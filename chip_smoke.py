@@ -6,7 +6,8 @@
 Phases, in order; any failure exits non-zero:
 
   1. build    compile every CUDA source of the port (flash_decode.cu,
-              vtrace.cu, flash_attention.cu) from this checkout, one nvcc
+              vtrace.cu, flash_attention.cu, ssd_scan.cu) from this
+              checkout, one nvcc
               each, all at once (sm_90a), and print the seconds and the
               ptxas report;
   2. kernels  hold the dense and the paged flash-decode kernel against
@@ -23,7 +24,13 @@ Phases, in order; any failure exits non-zero:
               the reference's sweep shapes (window included), ragged
               shapes and the training shape (B 2, T 2048, H 12, K 2,
               h 128, causal, bf16), and time it, the plain version and
-              scaled_dot_product_attention (a yardstick only) there;
+              scaled_dot_product_attention (a yardstick only) there.
+              Hold the SSD chunk-scan kernel (y, S_final, S_prevs) against
+              its plain version at the reference's sweep shapes and
+              mamba2-1.3b's training shape (B 2, T 2048, H 64, P 64,
+              N 128, Q 256) in float32 and bfloat16, with strided views as
+              the model hands them over, and time both at the training
+              shape in bf16;
   3. model    a reduced float32 qwen2 on the card (through the kernels)
               against the same weights on the CPU (plain versions);
   4. serve    qwen2-1.5b at full published width, random weights from a seed,
@@ -42,7 +49,13 @@ Phases, in order; any failure exits non-zero:
               qwen2-1.5b at full width (bf16, remat per layer) for 5 steps
               of batch 2 x seq 2048 through launch/train.py, the
               flash-attention and V-trace launch counts read over the run,
-              then one profiled step.
+              then one profiled step;
+  8. mamba2   the same for mamba2-1.3b: one reduced float32 step card vs
+              CPU, then full width (bf16, remat per layer) for 5 steps of
+              batch 2 x seq 2048 (ssd_scan 2 x 48 x 5 = 480 launches,
+              V-trace 5), one full-width make_prefill_step call (48
+              launches) with the kernel held against its plain version on
+              the first layer's own inputs, then one profiled step.
 
 Then it prints a JSON line of kernel records, the card's name and power
 limit, and as the last line {"ok": true, "device": {...}}.  It imports
@@ -151,9 +164,10 @@ def build_phase() -> None:
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_decode import flash_decode as fd
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
     from repro_torch.kernels.vtrace import vtrace as vt
 
-    sources = [fd.SOURCE, vt.SOURCE, fa.SOURCE]
+    sources = [fd.SOURCE, vt.SOURCE, fa.SOURCE, ssd.SOURCE]
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(sources)) as pool:
         built = list(pool.map(_build.build, sources))
@@ -433,6 +447,103 @@ def flash_attention_phase(dev) -> dict:
     return {"flash_attention": dict(max_abs_err=train_err, ms=ms,
                                     plain_ms=plain_ms, bound_ms=bound_ms,
                                     bound_by=bound_by, library_ms=library_ms)}
+
+
+# ------------------------------------------------- phase 2, SSD chunk scan
+
+# (B, T, H, P, N, Q): the reference's sweep (tests/test_kernels.py:55-74),
+# then mamba2-1.3b's training shape (batch 2 x seq 2048, H 64, P 64,
+# N 128, chunk 256)
+SSD_SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64),
+              (2, 64, 8, 16, 8, 16)]
+SSD_FULL = (2, 2048, 64, 64, 128, 256)
+SSD_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 0.05}  # the reference's
+
+
+def ssd_bound(B, T, H, P, N, Q, item) -> tuple[float, str]:
+    """Least time for the scan: the Pallas contract's inputs (x, dt, A, B,
+    C) read once and outputs (y, S_final) written once, against the flops
+    the function needs: the scores C B^T of the causal pairs, Q (Q + 1) N
+    once per (b, chunk) since B and C are shared by the heads; per
+    (b, h, chunk) their decayed product with dt x, Q (Q + 1) P, and the
+    read-out and the state update, 4 Q P N.  Over the float32 rate: the
+    function computes in float32 (the Pallas kernel upcasts every input),
+    which the card does at 67 TFLOP/s outside the tensor cores."""
+    nc = T // Q
+    flops = (nc * B * Q * (Q + 1) * N
+             + nc * B * H * (Q * (Q + 1) * P + 4 * Q * P * N))
+    nbytes = (item * (2 * B * T * H * P + 2 * B * T * N) + 4 * B * T * H
+              + 4 * H + 4 * B * H * P * N)
+    t_ops = flops / PEAK_OPS_PER_S["torch.float32"]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ssd_scan_phase(dev) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.ssd_scan import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def inputs(B, T, H, P, N, dtype, strided=False):
+        """As the model makes them: dt = softplus(N(0,1) + 0.5),
+        A = -exp(0.5 N(0,1)); x, B and C as the reference's test draws
+        them.  ``strided``: x, B and C are views of one (B, T, H P + 2 N)
+        tensor, as mamba2_block hands them over."""
+        dt = F.softplus(randn(B, T, H) + 0.5)
+        A = -torch.exp(0.5 * randn(H))
+        if strided:
+            wide = torch.cat([randn(B, T, H * P), 0.3 * randn(B, T, 2 * N)],
+                             dim=-1).to(dtype)
+            return (wide[..., :H * P].reshape(B, T, H, P), dt, A,
+                    wide[..., H * P:H * P + N], wide[..., H * P + N:])
+        return (randn(B, T, H, P).to(dtype), dt, A,
+                (0.3 * randn(B, T, N)).to(dtype),
+                (0.3 * randn(B, T, N)).to(dtype))
+
+    full_err = 0.0
+    cases = [(s, d, False) for d in (torch.float32, torch.bfloat16)
+             for s in SSD_SHAPES + [SSD_FULL]]
+    cases += [((2, 128, 16, 32, 16, 32), torch.float32, True),
+              ((2, 2048, 64, 64, 128, 256), torch.bfloat16, True)]
+    for (B, T, H, P, N, Q), dtype, strided in cases:
+        tol = SSD_TOL[str(dtype)]
+        xs = inputs(B, T, H, P, N, dtype, strided)
+        got = ssd.ssd_scan_cuda(*xs, chunk=Q)
+        want = ref.ssd_chunk_scan_ref(*xs, Q)
+        torch.cuda.synchronize()
+        errs = [(g.float() - w.float()).abs().max().item()
+                for g, w in zip(got, want)]
+        print(f"ssd    {str(dtype):15s} B={B} T={T:4d} H={H:2d} P={P:2d} "
+              f"N={N:3d} Q={Q:3d} strided={strided:d} max_abs_err "
+              f"y={errs[0]:.3e} S_final={errs[1]:.3e} S_prevs={errs[2]:.3e} "
+              f"(tol {tol}) max|y|={want[0].float().abs().max().item():.3f}")
+        check(all(bool(torch.isfinite(g).all()) for g in got),
+              "ssd_scan output not finite")
+        check(max(errs) <= tol, f"ssd_scan kernel off by {max(errs)} at "
+              f"{B, T, H, P, N, Q} {dtype} strided={strided}")
+        if (B, T, H, P, N, Q) == SSD_FULL and dtype == torch.bfloat16:
+            full_err = max(full_err, *errs)
+
+    B, T, H, P, N, Q = SSD_FULL
+    xs = inputs(B, T, H, P, N, torch.bfloat16, strided=True)
+    ms = time_ms(lambda: ssd.ssd_scan_cuda(*xs, chunk=Q), flush)
+    plain_ms = time_ms(lambda: ref.ssd_chunk_scan_ref(*xs, Q), flush)
+    bound_ms, bound_by = ssd_bound(B, T, H, P, N, Q, 2)
+    print(f"time   ssd_scan B={B} T={T} H={H} P={P} N={N} Q={Q} bf16 "
+          f"ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
+          f"({bound_by}) library_ms=- (no single PyTorch call computes the "
+          "SSD scan)")
+    return {"ssd_scan": dict(max_abs_err=full_err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=None)}
 
 
 # ------------------------------------------------------------ phase 3
@@ -865,10 +976,45 @@ def sebulba_trace(dev) -> None:
 # ------------------------------------------------------------ phase 7
 
 
-def train_parity(dev) -> None:
-    """One LLM learner step of the reduced float32 qwen2 on the card
-    (flash-attention and V-trace kernels) against the same step on the CPU
-    (plain versions), from the same params and batch, TF32 off.
+def _learner_kernels(family: str) -> list:
+    """(name, kernel module, plain module, plain function's name) of each
+    kernel a learner step of the family launches: the forward's (flash
+    attention for dense, the SSD scan for ssm), then V-trace."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.vtrace import ref as vt_ref
+    from repro_torch.kernels.vtrace import vtrace as vt
+
+    first = {"dense": ("flash_attention", fa, fa_ref, "flash_attention_ref"),
+             "ssm": ("ssd_scan", ssd, ssd_ref, "ssd_chunk_scan_ref")}[family]
+    return [first, ("vtrace", vt, vt_ref, "vtrace_ref")]
+
+
+def _reset_all_launches() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_decode import flash_decode as fd
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.vtrace import vtrace as vt
+
+    for mod in (fa, fd, ssd, vt):
+        mod.reset_launches()
+
+
+def _all_launches() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_decode import flash_decode as fd
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.kernels.vtrace import vtrace as vt
+
+    return {**fa.LAUNCHES, **fd.LAUNCHES, **ssd.LAUNCHES, **vt.LAUNCHES}
+
+
+def train_parity(dev, arch: str, seq: int) -> None:
+    """One LLM learner step of a reduced float32 model on the card (its
+    kernels) against the same step on the CPU (plain versions), from the
+    same params and batch, TF32 off.
 
     Metrics within 1e-4, gradients within 1e-5 + 1e-4 * |g| (sums in
     another order); Adam's first step is lr * g / (|g| + 1e-8), so the
@@ -879,18 +1025,16 @@ def train_parity(dev) -> None:
     import torch
 
     from repro_torch.configs.base import get_reduced_config
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.kernels.vtrace import vtrace as vt
     from repro_torch.launch import steps
     from repro_torch.launch.specs import make_batch
     from repro_torch.models import Model
 
     cpu = torch.device("cpu")
-    cfg = dataclasses.replace(get_reduced_config("qwen2-1.5b"),
-                              param_dtype="float32")
+    cfg = dataclasses.replace(get_reduced_config(arch), param_dtype="float32")
+    kernels = _learner_kernels(cfg.family)
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(7), device=cpu)
-    batch = make_batch(cfg, 2, 100, torch.Generator().manual_seed(8),
+    batch = make_batch(cfg, 2, seq, torch.Generator().manual_seed(8),
                        device=cpu)
     card_params, card_batch = _tree_to(params, dev), _tree_to(batch, dev)
     hp = steps.TrainHParams()
@@ -899,11 +1043,10 @@ def train_parity(dev) -> None:
     step = steps.make_train_step(model, opt, hp)
     with full_f32():
         g_cpu, m_cpu = grad_fn(params, batch)
-        fa.reset_launches()
-        vt.reset_launches()
+        _reset_all_launches()
         g_card, m_card = grad_fn(card_params, card_batch)
         torch.cuda.synchronize()
-        launched = (fa.LAUNCHES["flash_attention"], vt.LAUNCHES["vtrace"])
+        launched = _all_launches()
         step(params, opt.init(params), batch)
         step(card_params, opt.init(card_params), card_batch)
         torch.cuda.synchronize()
@@ -918,14 +1061,16 @@ def train_parity(dev) -> None:
     p_err = max(d[w].max().item() if w.any() else 0.0
                 for d, w in zip(diffs, well))
     p_all = max(d.max().item() for d in diffs)
-    print(f"train  one step, reduced qwen2 f32 (B 2, T 100), card vs cpu, "
-          f"TF32 off: metrics max_abs_err={m_err:.3e} (tol 1e-4) "
+    want = {name: 0 for name in launched}
+    want[kernels[0][0]] = 2 * cfg.num_layers  # remat reruns each layer
+    want["vtrace"] = 1
+    print(f"train  one step, reduced {arch} f32 (B 2, T {seq}), card vs "
+          f"cpu, TF32 off: metrics max_abs_err={m_err:.3e} (tol 1e-4) "
           f"grads max_abs_err={g_err:.3e} (tol 1e-5 + 1e-4*|g|) "
           f"params max_abs_err={p_err:.3e} where |g| >= 1e-6 (tol 1e-5), "
-          f"{p_all:.3e} over all; flash_attention launches={launched[0]} "
-          f"vtrace launches={launched[1]}")
-    check(launched == (2 * cfg.num_layers, 1),
-          f"card grad step launched (flash_attention, vtrace) {launched}")
+          f"{p_all:.3e} over all; launches "
+          + " ".join(f"{k}={v}" for k, v in launched.items() if v))
+    check(launched == want, f"card grad step launched {launched}, not {want}")
     check(m_err <= 1e-4, f"card and cpu loss metrics differ by {m_err}")
     check(g_excess <= 1e-5, f"card and cpu gradients differ by {g_err}")
     check(p_err <= 1e-5, f"card and cpu train steps differ by {p_err}")
@@ -934,27 +1079,21 @@ def train_parity(dev) -> None:
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 2, 2048
 
 
-def train_phase(dev) -> dict:
-    """qwen2-1.5b at full width for TRAIN_STEPS steps through
-    launch/train.py; returns the launches of the run."""
+def learner_run(dev, arch: str) -> tuple[dict, dict]:
+    """``arch`` at full width for TRAIN_STEPS steps through
+    launch/train.py, every kernel's launches counted over the run and
+    every plain version's calls on CUDA tensors -> (train's result, the
+    launches of the path's kernels)."""
     import math
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.kernels.flash_attention import flash_attention as fa
-    from repro_torch.kernels.flash_attention import ref as fa_ref
-    from repro_torch.kernels.flash_decode import flash_decode as fd
-    from repro_torch.kernels.vtrace import ref as vt_ref
-    from repro_torch.kernels.vtrace import vtrace as vt
+    from repro_torch.configs.base import get_config
     from repro_torch.launch import train
 
-    train_parity(dev)
-
-    plain_on_card = {"flash_attention": 0, "vtrace": 0}
-    plains = {"flash_attention": (fa_ref, "flash_attention_ref"),
-              "vtrace": (vt_ref, "vtrace_ref")}
-    saved = {name: getattr(mod, attr) for name, (mod, attr) in plains.items()}
+    kernels = _learner_kernels(get_config(arch).family)
+    plain_on_card = {name: 0 for name, *_ in kernels}
+    saved = {name: getattr(mod, attr) for name, _, mod, attr in kernels}
 
     def counted(name):
         def fn(x, *args, **kw):  # ops reaches them as ref.<name>
@@ -964,33 +1103,37 @@ def train_phase(dev) -> dict:
 
     gc.collect()
     torch.cuda.empty_cache()
-    for name, (mod, attr) in plains.items():
+    for name, _, mod, attr in kernels:
         setattr(mod, attr, counted(name))
     try:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        fa.reset_launches()
-        vt.reset_launches()
-        fd.reset_launches()
-        out = train.train("qwen2-1.5b", full=True, steps=TRAIN_STEPS,
+        _reset_all_launches()
+        out = train.train(arch, full=True, steps=TRAIN_STEPS,
                           batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev)
         torch.cuda.synchronize()
-        launches = {"flash_attention": fa.LAUNCHES["flash_attention"],
-                    "vtrace": vt.LAUNCHES["vtrace"]}
-        other = dict(fd.LAUNCHES)
+        launched = _all_launches()
     finally:
-        for name, (mod, attr) in plains.items():
+        for name, _, mod, attr in kernels:
             setattr(mod, attr, saved[name])
     peak = torch.cuda.max_memory_allocated()
     cfg = out["cfg"]
     secs = out["step_seconds"]
     steady = statistics.median(secs[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    want_fa = 2 * cfg.num_layers * cfg.microbatches * TRAIN_STEPS
+    want = {name: 0 for name in launched}
+    want[kernels[0][0]] = 2 * cfg.num_layers * cfg.microbatches * TRAIN_STEPS
+    want["vtrace"] = TRAIN_STEPS
+    if cfg.family == "ssm":
+        width = (f"d_inner={cfg.d_inner} H={cfg.ssm_heads} "
+                 f"P={cfg.ssm_head_dim} N={cfg.ssm_state} Q={cfg.ssm_chunk} "
+                 f"conv={cfg.conv_width}")
+    else:
+        width = (f"H={cfg.num_heads}/K={cfg.num_kv_heads} h={cfg.head_dim} "
+                 f"d_ff={cfg.d_ff}")
     print(f"train  {cfg.name}: {cfg.num_layers} layers d={cfg.d_model} "
-          f"H={cfg.num_heads}/K={cfg.num_kv_heads} h={cfg.head_dim} "
-          f"d_ff={cfg.d_ff} V={cfg.vocab_size} {cfg.param_dtype} "
+          f"{width} V={cfg.vocab_size} {cfg.param_dtype} "
           f"remat={cfg.remat} microbatches={cfg.microbatches}: "
           f"{out['n_params']:,} params, batch {TRAIN_BATCH} x seq {TRAIN_SEQ}")
     print(f"train  step_ms={[round(1e3 * t, 3) for t in secs]} "
@@ -1000,12 +1143,11 @@ def train_phase(dev) -> dict:
           f"peak_mem={peak / 2**30:.3f} GiB (of which {base / 2**30:.3f} GiB "
           f"held before the run)")
     print(f"train  metrics {json.dumps(out['metrics'])}")
-    print(f"train  launches flash_attention={launches['flash_attention']} "
-          f"(expected 2 x {cfg.num_layers} layers x {cfg.microbatches} "
-          f"microbatches x {TRAIN_STEPS} steps = {want_fa}) "
-          f"vtrace={launches['vtrace']} (expected {TRAIN_STEPS}) "
-          f"plain_flash_attention_on_card={plain_on_card['flash_attention']} "
-          f"plain_vtrace_on_card={plain_on_card['vtrace']}")
+    print(f"train  launches {launched} (expected {kernels[0][0]} 2 x "
+          f"{cfg.num_layers} layers x {cfg.microbatches} microbatches x "
+          f"{TRAIN_STEPS} steps = {want[kernels[0][0]]}, vtrace "
+          f"{TRAIN_STEPS}, no other kernel) plain versions on the card "
+          f"{plain_on_card}")
     check(all(math.isfinite(v) for m in out["metrics"] for v in m.values()),
           "non-finite training metrics")
     # random init: the first step's cross-entropy is that of a near-uniform
@@ -1013,18 +1155,26 @@ def train_phase(dev) -> dict:
     ce0 = out["metrics"][0]["ce"]
     check(abs(ce0 - math.log(cfg.vocab_size)) < 0.5,
           f"first-step ce {ce0} far from log(V) = {math.log(cfg.vocab_size)}")
-    check(launches["flash_attention"] == want_fa,
-          f"flash_attention launches {launches['flash_attention']} != {want_fa}")
-    check(launches["vtrace"] == TRAIN_STEPS,
-          f"vtrace launches {launches['vtrace']} != {TRAIN_STEPS}")
+    check(launched == want, f"launches {launched} != {want}")
     check(not any(plain_on_card.values()),
           f"a plain version ran on the card: {plain_on_card}")
-    check(not any(other.values()), f"flash-decode launched: {other}")
     check(all(bool(torch.isfinite(x).all()) for x in _leaves(out["params"])),
           "trained params not finite")
+    return out, {name: launched[name] for name, *_ in kernels}
 
-    batch = train.batch_for_step(cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
-                                 dev)
+
+def trace_step(dev, out, kinds: dict, ops: tuple) -> None:
+    """One profiled train step: the device's busy share, device time by
+    kind of kernel, the device time of the kernels launched under each of
+    ``ops`` (autograd functions, forward and backward), and the top
+    kernels and host ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import train
+
+    batch = train.batch_for_step(out["cfg"], TRAIN_STEPS, TRAIN_BATCH,
+                                 TRAIN_SEQ, dev)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, _, m = out["step"](out["params"], out["opt_state"], batch)
@@ -1037,9 +1187,7 @@ def train_phase(dev) -> dict:
     print(f"trace  profiled train step: wall {wall:.4f} s, device busy "
           f"{busy:.4f} s = {busy / wall:.4f} of wall (profiler on), loss "
           f"{m['loss'].item():.4f}")
-    kinds = {"flash_attention kernel": ("flash_fwd_kernel",),
-             "vtrace kernel": ("vtrace_kernel",),
-             "GEMM": ("gemm", "nvjet", "xmma")}
+    kinds = {**kinds, "GEMM": ("gemm", "nvjet", "xmma")}
     spent = {name: [0.0, 0] for name in kinds}
     for e in kernels:
         for name, keys in kinds.items():
@@ -1052,10 +1200,11 @@ def train_phase(dev) -> dict:
         f"{name} {ms:.3f} ({n}x)" for name, (ms, n) in spent.items())
         + f", other {rest:.3f}")
     for e in events:  # the device time of kernels launched under each op
-        if e.key in ("_FlashAttention", "_FlashAttentionBackward"):
+        if e.key in ops:
             print(f"trace  {e.key}: {e.count}x, device "
                   f"{e.device_time_total / 1e3:.3f} ms in kernels launched "
-                  "under it")
+                  f"under it = {e.device_time_total / 1e6 / busy:.4f} of "
+                  "the device time")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"trace    device {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
@@ -1063,7 +1212,91 @@ def train_phase(dev) -> dict:
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:10]:
         print(f"trace    host   {e.self_cpu_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
+
+
+def train_phase(dev) -> dict:
+    """qwen2-1.5b: the reduced step card vs CPU, then full width for
+    TRAIN_STEPS steps and one profiled step; returns the launches."""
+    train_parity(dev, "qwen2-1.5b", 100)
+    out, launches = learner_run(dev, "qwen2-1.5b")
+    trace_step(dev, out, {"flash_attention kernel": ("flash_fwd_kernel",),
+                          "vtrace kernel": ("vtrace_kernel",)},
+               ("_FlashAttention", "_FlashAttentionBackward"))
     return launches
+
+
+def mamba2_phase(dev) -> dict:
+    """mamba2-1.3b: the reduced step card vs CPU (T 128: 4 chunks of 32),
+    then full width for TRAIN_STEPS steps, one full-width prefill call
+    (the inference forward) with the kernel held against its plain
+    version on the first layer's own inputs, and one profiled step;
+    returns the launches by path."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan import ref as ssd_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan as ssd
+    from repro_torch.launch import steps, train
+    from repro_torch.models import Model
+
+    train_parity(dev, "mamba2-1.3b", 128)
+    out, launches = learner_run(dev, "mamba2-1.3b")
+    cfg = out["cfg"]
+
+    prefill = steps.make_prefill_step(Model(cfg))
+    batch = train.batch_for_step(cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ,
+                                 dev)
+    first = []
+    kernel = ssd_ops.ssd_scan_cuda
+
+    def keep_first(*args, **kw):  # ops reaches it as ssd_scan_cuda
+        if not first:
+            first.append((args, kw))
+        return kernel(*args, **kw)
+
+    ssd_ops.ssd_scan_cuda = keep_first
+    try:
+        torch.cuda.synchronize()
+        _reset_all_launches()
+        t0 = time.perf_counter()
+        logits, values = prefill(out["params"], batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = _all_launches()
+    finally:
+        ssd_ops.ssd_scan_cuda = kernel
+    want = {name: 0 for name in launched}
+    want["ssd_scan"] = cfg.num_layers
+    print(f"prefill {cfg.name} make_prefill_step, batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}: {1e3 * secs:.3f} ms, logits {tuple(logits.shape)} "
+          f"values {tuple(values.shape)}, launches {launched} (expected "
+          f"ssd_scan {cfg.num_layers}, one a layer)")
+    check(tuple(logits.shape) == (TRAIN_BATCH, cfg.vocab_size)
+          and tuple(values.shape) == (TRAIN_BATCH,), "prefill shapes")
+    check(bool(torch.isfinite(logits).all() and torch.isfinite(values).all()),
+          "prefill outputs not finite")
+    check(launched == want, f"prefill launches {launched} != {want}")
+    (xs, kw), = first
+    got = ssd.ssd_scan_cuda(*xs, **kw)
+    ref_out = ssd_ref.ssd_chunk_scan_ref(*xs, kw["chunk"])
+    torch.cuda.synchronize()
+    errs = [(g.float() - w.float()).abs().max().item()
+            for g, w in zip(got, ref_out)]
+    print(f"prefill ssd_scan on layer 0's own inputs ({xs[0].dtype}, "
+          f"x {tuple(xs[0].shape)} strides {xs[0].stride()}): max_abs_err "
+          f"y={errs[0]:.3e} S_final={errs[1]:.3e} S_prevs={errs[2]:.3e} "
+          f"(tol {SSD_TOL[str(xs[0].dtype)]}) "
+          f"max|y|={ref_out[0].float().abs().max().item():.4f}")
+    check(max(errs) <= SSD_TOL[str(xs[0].dtype)],
+          f"ssd_scan off by {max(errs)} on the model's inputs")
+    del first, xs, got, ref_out, logits, values
+
+    trace_step(dev, out, {"ssd_scan kernel": ("ssd_scan_kernel",),
+                          "vtrace kernel": ("vtrace_kernel",)},
+               ("_SSDChunkScan", "_SSDChunkScanBackward"))
+    return {"ssd_scan": {"mamba2_train": launches["ssd_scan"],
+                         "mamba2_prefill": launched["ssd_scan"]},
+            "vtrace": {"mamba2_train": launches["vtrace"]}}
 
 
 def _leaves(tree):
@@ -1102,6 +1335,7 @@ def main() -> int:
     records.update(timed("kernels (V-trace)", vtrace_phase, dev))
     records.update(timed("kernels (flash attention)", flash_attention_phase,
                          dev))
+    records.update(timed("kernels (SSD scan)", ssd_scan_phase, dev))
     with full_f32():
         timed("model", model_phase, dev)
     launches = timed("serve", serve_phase, dev)
@@ -1114,6 +1348,9 @@ def main() -> int:
     trained = timed("train", train_phase, dev)
     by_path["vtrace"]["train"] = trained["vtrace"]
     by_path["flash_attention"] = {"train": trained["flash_attention"]}
+    mamba = timed("mamba2", mamba2_phase, dev)
+    by_path["vtrace"].update(mamba["vtrace"])
+    by_path["ssd_scan"] = mamba["ssd_scan"]
 
     kernels = []
     for name, source, replaces in (
@@ -1127,6 +1364,8 @@ def main() -> int:
         ("flash_attention",
          "src/repro_torch/kernels/flash_attention/flash_attention.cu",
          "src/repro/kernels/flash_attention/flash_attention.py:91"),
+        ("ssd_scan", "src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
+         "src/repro/kernels/ssd_scan/ssd_scan.py:77"),
     ):
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,

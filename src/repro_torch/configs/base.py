@@ -94,11 +94,26 @@ class ArchConfig:
     def q_per_kv(self) -> int:
         return self.num_heads // max(1, self.num_kv_heads)
 
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def param_count(self) -> int:
-        """Analytic parameter count of a dense model (embedding + trunk)."""
+        """Analytic parameter count of a dense or ssm model (embedding +
+        trunk), as the reference approximates it."""
         d, L, V = self.d_model, self.num_layers, self.vocab_size
         hd, H, K = self.head_dim, self.num_heads, self.num_kv_heads
         emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.family == "ssm":
+            di, s = self.d_inner, self.ssm_state
+            # in_proj (2*di + 2*groups*s + heads), conv, dt, out_proj
+            return emb + L * (d * (2 * di + 2 * s + self.ssm_heads)
+                              + di * d + 3 * di)
         attn = d * H * hd + 2 * d * K * hd + H * hd * d
         return emb + L * (attn + 3 * d * self.d_ff)
 

@@ -6,6 +6,15 @@ port has, reduced config by default, the published one with ``--full``.
         --steps 5 --batch 2 --seq 2048
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
         --device cpu --steps 3 --batch 2 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b --full \
+        --steps 5 --batch 2 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
+        --device cpu --steps 2 --batch 2 --seq 64
+
+The dense family's forward runs the flash-attention kernel and the ssm
+family's (Mamba-2) the SSD chunk-scan kernel; both losses run V-trace.  An
+ssm sequence must divide into chunks of min(ssm_chunk, seq) steps (32 in
+the reduced config, 256 in the published one).
 
 It runs on the card unless ``--device cpu`` is given, and raises where no
 card is present.  Params are random from seed 0 and batch i is drawn from

@@ -1,4 +1,4 @@
-"""The model API for the dense family: the port of
+"""The model API for the dense and ssm families: the port of
 ``repro/models/model.py`` (``init``, ``forward``, ``init_cache``,
 ``init_paged_cache``, ``decode_step``, ``prefill_step``).
 
@@ -18,8 +18,15 @@ Python loop over per-layer views in both.  ``forward`` wraps each layer in
 ``jax.checkpoint``).  ``decode_step`` and ``prefill_step`` write the cache
 in place and return it.
 
+The ssm family (Mamba-2) runs ``init`` and ``forward`` (the train and
+prefill forward, each layer ``h + mamba2_block(p["mixer"], h)``, params
+under ``blocks/mixer/*`` or ``layer_{i}/mixer/*``).  Its decode state is
+not ported yet: ``init_cache`` and ``decode_step`` raise
+``NotImplementedError`` (ROADMAP Queue 1 #10c), and ``prefill_step`` and
+``init_paged_cache`` raise ``ValueError`` as the reference's do.
+
 What the port does not run yet raises ``ValueError`` at construction:
-families other than dense, sliding-window layers, logit softcap,
+families other than dense and ssm, sliding-window layers, logit softcap,
 qk-norm, learned positions and the fp8 cache.
 """
 
@@ -32,7 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba2
 from repro_torch.models import transformer as tf
 from repro_torch.param import ParamBuilder, fan_in_init
 
@@ -43,7 +50,7 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def _unsupported(cfg: ArchConfig, kinds: list[str]) -> list[str]:
     out = []
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm"):
         out.append(f"family {cfg.family!r}")
     if set(kinds) != {"G"}:
         out.append(f"layer pattern {cfg.layer_pattern!r}")
@@ -92,15 +99,21 @@ class Model:
         b = ParamBuilder(generator, _DTYPES[cfg.param_dtype], dev)
         layers.init_embedding(b, "embedding", cfg.vocab_size, cfg.d_model,
                               cfg.tie_embeddings)
-        if self.stacked:
-            with b.scope("blocks"), b.stack(cfg.num_layers):
+
+        def one_layer():
+            if cfg.family == "ssm":
+                mamba2.init_mamba2_block(b, "mixer", cfg)
+            else:
                 tf.init_attn_layer(b, cfg)
                 tf.init_ffn_layer(b, cfg)
+
+        if self.stacked:
+            with b.scope("blocks"), b.stack(cfg.num_layers):
+                one_layer()
         else:
             for i in range(cfg.num_layers):
                 with b.scope(f"layer_{i}"):
-                    tf.init_attn_layer(b, cfg)
-                    tf.init_ffn_layer(b, cfg)
+                    one_layer()
         layers.init_rms_norm(b, "final_norm", cfg.d_model)
         with b.scope("value_head"):
             b.param("w", (cfg.d_model, 1), fan_in_init())
@@ -123,9 +136,16 @@ class Model:
                                for n in ("k", "v")}
                 for i in range(cfg.num_layers)}
 
+    def _no_ssm_decode(self, what: str) -> None:
+        if self.cfg.family == "ssm":
+            raise NotImplementedError(
+                f"{what}: the ssm decode state (init_mamba2_cache, "
+                "mamba2_decode_step) is not ported yet: ROADMAP Queue 1 #10c")
+
     def init_cache(self, batch: int, seq_len: int, dtype=None,
                    device: str | torch.device | None = None) -> Params:
         """Dense (B, S, K, h) K/V per layer."""
+        self._no_ssm_decode("init_cache")
         cfg = self.cfg
         return self._kv((batch, seq_len, cfg.num_kv_heads, cfg.head_dim),
                         dtype, device)
@@ -137,6 +157,9 @@ class Model:
         scratch, never mapped to a live request, so out-of-range writes
         land there harmlessly."""
         cfg = self.cfg
+        if cfg.family != "dense":
+            raise ValueError(
+                f"paged cache supports dense/moe only, not {cfg.family}")
         return self._kv((num_blocks, block_size, cfg.num_kv_heads,
                          cfg.head_dim), dtype, device)
 
@@ -167,12 +190,14 @@ class Model:
 
     def forward(self, params: Params, batch: dict):
         """batch["tokens"] (B, T) -> (logits (B,T,V) f32, values (B,T) f32,
-        aux 0-d f32: the dense family has no auxiliary loss)."""
+        aux 0-d f32: the dense and ssm families have no auxiliary loss)."""
         cfg = self.cfg
         x = self._embed(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)
 
         def layer(p, h):
+            if cfg.family == "ssm":
+                return h + mamba2.mamba2_block(p["mixer"], h, cfg)
             h = tf.attn_sublayer(p, h, positions, cfg)
             return tf.ffn_sublayer(p, h, cfg)
 
@@ -193,6 +218,7 @@ class Model:
         ``pos`` is an int (lockstep batch) or a (B,) int32 tensor of
         per-row positions.  ``block_tables`` (B, nb) int32 switches to the
         page pools from ``init_paged_cache``."""
+        self._no_ssm_decode("decode_step")
         x = self._embed(params, tokens)
         for p, c in self._layers(params, cache):
             x, _ = tf.attn_sublayer_decode(p, c, x, pos, self.cfg,
@@ -207,6 +233,10 @@ class Model:
         at positions pos[b]..pos[b]+C-1 -> (logits (B,C,V) f32,
         values (B,C) f32, cache): the fused equivalent of C sequential
         ``decode_step`` calls."""
+        if self.cfg.family != "dense":
+            raise ValueError(
+                f"prefill_step supports dense/moe only, not "
+                f"{self.cfg.family}; other families decode token-by-token")
         x = self._embed(params, tokens)
         for p, c in self._layers(params, cache):
             x, _ = tf.attn_sublayer_prefill(p, c, x, pos, self.cfg,

@@ -59,6 +59,13 @@ def ones_init() -> Init:
     return init
 
 
+def constant_init(value: float) -> Init:
+    def init(gen, stack, shape, dtype, device):
+        return torch.full(stack + shape, value, dtype=dtype, device=device)
+
+    return init
+
+
 class ParamBuilder:
     """Collects parameters into a nested dict.
 

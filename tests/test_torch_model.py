@@ -376,7 +376,7 @@ def test_stacked_and_looped_layouts_agree():
 
 def test_model_refuses_what_the_port_does_not_run():
     _, cfg = _cfgs()
-    for kw, word in ((dict(family="ssm"), "ssm"),
+    for kw, word in ((dict(family="hybrid"), "hybrid"),
                      (dict(layer_pattern="LLG", sliding_window=8), "pattern"),
                      (dict(attn_logit_softcap=50.0), "softcap"),
                      (dict(cache_dtype="float8_e4m3fn"), "float8")):
