@@ -104,8 +104,10 @@ class ArchConfig:
         return self.d_inner // self.ssm_head_dim
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense or ssm model (embedding +
-        trunk), as the reference approximates it."""
+        """Analytic parameter count of a dense, ssm or hybrid model
+        (embedding + trunk), as the reference approximates it: a hybrid
+        layer counts as an attention layer, the RG-LRU block standing in
+        for attention at a similar size."""
         d, L, V = self.d_model, self.num_layers, self.vocab_size
         hd, H, K = self.head_dim, self.num_heads, self.num_kv_heads
         emb = V * d * (1 if self.tie_embeddings else 2)

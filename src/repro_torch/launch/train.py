@@ -10,11 +10,18 @@ port has, reduced config by default, the published one with ``--full``.
         --steps 5 --batch 2 --seq 2048
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
         --device cpu --steps 2 --batch 2 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch recurrentgemma-2b --full --steps 5 --batch 2 --seq 2048
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch recurrentgemma-2b --device cpu --steps 2 --batch 2 --seq 128
 
-The dense family's forward runs the flash-attention kernel and the ssm
-family's (Mamba-2) the SSD chunk-scan kernel; both losses run V-trace.  An
-ssm sequence must divide into chunks of min(ssm_chunk, seq) steps (32 in
-the reduced config, 256 in the published one).
+The dense family's forward runs the flash-attention kernel, the ssm
+family's (Mamba-2) the SSD chunk-scan kernel and the hybrid family's
+(Griffin) the RG-LRU scan kernel, its windowed attention layers the plain
+blocked attention; every loss runs V-trace.  An ssm sequence must divide
+into chunks of min(ssm_chunk, seq) steps (32 in the reduced config, 256
+in the published one); a hybrid sequence on the card must divide into
+blocks of min(256, seq) steps (the RG-LRU kernel's contract).
 
 It runs on the card unless ``--device cpu`` is given, and raises where no
 card is present.  Params are random from seed 0 and batch i is drawn from

@@ -1,13 +1,18 @@
-"""GQA attention: the port of the training forward (``full_attention``),
-decode and prefill parts of ``repro/models/attention.py``.
+"""GQA attention: the port of the training forward (``full_attention``,
+``sliding_window_attention``), decode and prefill parts of
+``repro/models/attention.py``.
 
 ``full_attention`` runs its forward through ``kernels/flash_attention``
 (the Hopper kernel on the card) and its backward as the reference's
-flash-attention VJP in plain PyTorch.  Single-token decode goes through
-``kernels/flash_decode`` (the Hopper kernels on the card); chunked prefill
-is ``chunk_decode_attention`` here.  The cache updates write IN PLACE and
-return the same tensors, where the reference returns new arrays: the port
-keeps one cache alive instead of two.
+flash-attention VJP in plain PyTorch.  ``sliding_window_attention``, the
+windowed layers' training forward, is plain PyTorch with autograd, as the
+reference's is jnp: routing it through the kernel, which takes a window,
+would need a windowed ``_fa_bwd`` that the reference does not have.
+Single-token decode goes through ``kernels/flash_decode`` (the Hopper
+kernels on the card); chunked prefill is ``chunk_decode_attention`` here.
+The cache updates write IN PLACE and return the same tensors, where the
+reference returns new arrays: the port keeps one cache alive instead of
+two.
 
 ``decode_attention`` (the reference's jnp decode, which casts the
 probabilities to the cache dtype before the PV product) is not ported:
@@ -168,6 +173,52 @@ def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``chunk`` is the backward's KV chunk and the CPU forward's; the
     kernel's tile is its own."""
     return _FlashAttention.apply(q, k, v, causal, chunk, softcap)
+
+
+def sliding_window_attention(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, window: int,
+                             softcap: float = 0.0) -> torch.Tensor:
+    """Causal local attention with window ``window``, blocked O(T * 2W):
+    the reference's ``sliding_window_attention`` in plain PyTorch, with
+    autograd for its gradient.
+
+    Each query block of W = min(window, T) rows attends to a 2W key slab,
+    its own block and the previous one (zeros before block 0), under the
+    exact causal + window mask rel = w + W - s in [0, window); block 0
+    forbids s < W.  q is scaled by h^-0.5 before the product, the logits
+    are float32, and p is cast to v's dtype for PV.
+    q: (B, T, H, h); k, v: (B, T, K, h) -> (B, T, H, h)."""
+    B, T, H, h = q.shape
+    K = k.shape[2]
+    G = H // K
+    W = min(window, T)
+    nb = -(-T // W)
+    pad = nb * W - T
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, 0, 0, pad)) for t in (q, k, v))
+    qb = q.reshape(B, nb, W, H, h) * (h**-0.5)
+    kb = k.reshape(B, nb, W, K, h)
+    vb = v.reshape(B, nb, W, K, h)
+    k_prev = torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], dim=1)
+    v_prev = torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], dim=1)
+    k2 = torch.cat([k_prev, kb], dim=2)  # (B, nb, 2W, K, h)
+    v2 = torch.cat([v_prev, vb], dim=2)
+    qg = qb.reshape(B, nb, W, K, G, h)
+    logits = torch.einsum("bnwkgh,bnskh->bnkgws", qg, k2).float()
+    if softcap > 0:
+        logits = softcap * torch.tanh(logits / softcap)
+    # query i = n W + w and key j = (n - 1) W + s: rel = i - j
+    w_idx = torch.arange(W, device=q.device)[:, None]
+    s_idx = torch.arange(2 * W, device=q.device)[None, :]
+    rel = (w_idx + W) - s_idx
+    mask = (rel >= 0) & (rel < window)
+    first = (torch.arange(nb, device=q.device) == 0)[:, None, None]
+    mask = mask[None] & ~(first & (s_idx < W)[None])  # (nb, W, 2W)
+    logits = torch.where(mask[None, :, None, None], logits, NEG_INF)
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bnkgws,bnskh->bnwkgh", p.to(v2.dtype), v2)
+    out = out.reshape(B, nb * W, H, h)[:, :T]
+    return out.to(q.dtype)
 
 
 def chunk_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,4 +1,4 @@
-"""The model API for the dense and ssm families: the port of
+"""The model API for the dense, ssm and hybrid families: the port of
 ``repro/models/model.py`` (``init``, ``forward``, ``init_cache``,
 ``init_paged_cache``, ``decode_step``, ``prefill_step``).
 
@@ -20,18 +20,24 @@ in place and return it.
 
 The ssm family (Mamba-2) runs ``init`` and ``forward`` (the train and
 prefill forward, each layer ``h + mamba2_block(p["mixer"], h)``, params
-under ``blocks/mixer/*`` or ``layer_{i}/mixer/*``).  Its decode state is
-not ported yet: ``init_cache`` and ``decode_step`` raise
-``NotImplementedError`` (ROADMAP Queue 1 #10c), and ``prefill_step`` and
-``init_paged_cache`` raise ``ValueError`` as the reference's do.
+under ``blocks/mixer/*`` or ``layer_{i}/mixer/*``).  The hybrid family
+(Griffin) runs ``init`` and ``forward`` over its R/A pattern, always in
+the ``layer_{i}`` layout as the reference lays it out: an R layer is
+``h + recurrent_block(p["recurrent"], h)`` then the FFN, an A layer
+windowed attention then the FFN; a gemma model's embedding is scaled by
+sqrt(d) rounded to the param dtype.  Their decode state is not ported
+yet: ``init_cache`` and ``decode_step`` raise ``NotImplementedError``
+(ROADMAP Queue 1 #10c), and ``prefill_step`` and ``init_paged_cache``
+raise ``ValueError`` as the reference's do.
 
 What the port does not run yet raises ``ValueError`` at construction:
-families other than dense and ssm, sliding-window layers, logit softcap,
-qk-norm, learned positions and the fp8 cache.
+the moe, vlm and audio families, dense layer patterns other than global
+attention, logit softcap, qk-norm, learned positions and the fp8 cache.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Iterator
 
 import torch
@@ -39,20 +45,26 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import layers, mamba2
+from repro_torch.models import griffin, layers, mamba2
 from repro_torch.models import transformer as tf
 from repro_torch.param import ParamBuilder, fan_in_init
 
 Params = Any
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the reference's decode state of the recurrent families, not ported yet
+_DECODE_STATE = {
+    "ssm": "init_mamba2_cache, mamba2_decode_step",
+    "hybrid": "init_recurrent_cache, recurrent_decode_step, the ring-buffer "
+              "KV cache",
+}
 
 
 def _unsupported(cfg: ArchConfig, kinds: list[str]) -> list[str]:
     out = []
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         out.append(f"family {cfg.family!r}")
-    if set(kinds) != {"G"}:
+    if not set(kinds) <= ({"R", "A"} if cfg.family == "hybrid" else {"G"}):
         out.append(f"layer pattern {cfg.layer_pattern!r}")
     if cfg.attn_logit_softcap:
         out.append("logit softcap")
@@ -84,7 +96,9 @@ class Model:
             raise ValueError(f"{cfg.name}: the port does not run "
                              f"{', '.join(missing)} yet")
         self.cfg = cfg
-        self.stacked = not unroll and tf.is_uniform(cfg)
+        # the reference never stacks the hybrid family (model.py:77-80)
+        self.stacked = (not unroll and cfg.family != "hybrid"
+                        and tf.is_uniform(cfg))
 
     # ------------------------------------------------------------------ init
 
@@ -100,20 +114,23 @@ class Model:
         layers.init_embedding(b, "embedding", cfg.vocab_size, cfg.d_model,
                               cfg.tie_embeddings)
 
-        def one_layer():
+        def one_layer(kind):
             if cfg.family == "ssm":
                 mamba2.init_mamba2_block(b, "mixer", cfg)
+                return
+            if kind == "R":
+                griffin.init_recurrent_block(b, "recurrent", cfg)
             else:
                 tf.init_attn_layer(b, cfg)
-                tf.init_ffn_layer(b, cfg)
+            tf.init_ffn_layer(b, cfg)
 
         if self.stacked:
             with b.scope("blocks"), b.stack(cfg.num_layers):
-                one_layer()
+                one_layer(self.kinds[0])
         else:
-            for i in range(cfg.num_layers):
+            for i, kind in enumerate(self.kinds):
                 with b.scope(f"layer_{i}"):
-                    one_layer()
+                    one_layer(kind)
         layers.init_rms_norm(b, "final_norm", cfg.d_model)
         with b.scope("value_head"):
             b.param("w", (cfg.d_model, 1), fan_in_init())
@@ -136,16 +153,17 @@ class Model:
                                for n in ("k", "v")}
                 for i in range(cfg.num_layers)}
 
-    def _no_ssm_decode(self, what: str) -> None:
-        if self.cfg.family == "ssm":
+    def _no_decode_state(self, what: str) -> None:
+        family = self.cfg.family
+        if family in _DECODE_STATE:
             raise NotImplementedError(
-                f"{what}: the ssm decode state (init_mamba2_cache, "
-                "mamba2_decode_step) is not ported yet: ROADMAP Queue 1 #10c")
+                f"{what}: the {family} decode state ({_DECODE_STATE[family]})"
+                " is not ported yet: ROADMAP Queue 1 #10c")
 
     def init_cache(self, batch: int, seq_len: int, dtype=None,
                    device: str | torch.device | None = None) -> Params:
         """Dense (B, S, K, h) K/V per layer."""
-        self._no_ssm_decode("init_cache")
+        self._no_decode_state("init_cache")
         cfg = self.cfg
         return self._kv((batch, seq_len, cfg.num_kv_heads, cfg.head_dim),
                         dtype, device)
@@ -178,8 +196,13 @@ class Model:
         return zip(self._per_layer(params), self._per_layer(cache))
 
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        return layers.embed(params["embedding"], tokens.long(),
-                            _DTYPES[self.cfg.param_dtype])
+        cfg = self.cfg
+        x = layers.embed(params["embedding"], tokens.long(),
+                         _DTYPES[cfg.param_dtype])
+        if "gemma" in cfg.name:  # sqrt(d) rounded to x's dtype first
+            # (a 0-d CPU tensor multiplies a CUDA one with no copy to it)
+            x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
+        return x
 
     def _heads(self, params: Params, x: torch.Tensor):
         """-> (logits (B,T,V) f32, values (B,T) f32)."""
@@ -190,22 +213,28 @@ class Model:
 
     def forward(self, params: Params, batch: dict):
         """batch["tokens"] (B, T) -> (logits (B,T,V) f32, values (B,T) f32,
-        aux 0-d f32: the dense and ssm families have no auxiliary loss)."""
+        aux 0-d f32: the dense, ssm and hybrid families have no auxiliary
+        loss)."""
         cfg = self.cfg
         x = self._embed(params, batch["tokens"])
         positions = torch.arange(x.shape[1], device=x.device)
 
-        def layer(p, h):
+        def layer(p, h, kind):
             if cfg.family == "ssm":
                 return h + mamba2.mamba2_block(p["mixer"], h, cfg)
-            h = tf.attn_sublayer(p, h, positions, cfg)
+            if kind == "R":
+                h = h + griffin.recurrent_block(p["recurrent"], h, cfg)
+            else:
+                window, theta = tf.local_params(cfg, kind)
+                h = tf.attn_sublayer(p, h, positions, cfg, window=window,
+                                     theta=theta)
             return tf.ffn_sublayer(p, h, cfg)
 
-        for p in self._per_layer(params):
+        for p, kind in zip(self._per_layer(params), self.kinds):
             if cfg.remat != "none":
-                x = checkpoint(layer, p, x, use_reentrant=False)
+                x = checkpoint(layer, p, x, kind, use_reentrant=False)
             else:
-                x = layer(p, x)
+                x = layer(p, x, kind)
         logits, values = self._heads(params, x)
         return logits, values, torch.zeros((), dtype=torch.float32,
                                            device=x.device)
@@ -218,7 +247,7 @@ class Model:
         ``pos`` is an int (lockstep batch) or a (B,) int32 tensor of
         per-row positions.  ``block_tables`` (B, nb) int32 switches to the
         page pools from ``init_paged_cache``."""
-        self._no_ssm_decode("decode_step")
+        self._no_decode_state("decode_step")
         x = self._embed(params, tokens)
         for p, c in self._layers(params, cache):
             x, _ = tf.attn_sublayer_decode(p, c, x, pos, self.cfg,

@@ -1,9 +1,11 @@
-"""Decoder sublayers of the dense family: the port of the training
-forward, decode, prefill and layer-pattern parts of
+"""Decoder sublayers of the dense and hybrid families: the port of the
+training forward, decode, prefill and layer-pattern parts of
 ``repro/models/transformer.py``.
 
 The training forward (``attn_sublayer``) attends with
-``attention.full_attention`` (its forward is ``kernels.flash_attention``);
+``attention.full_attention`` (its forward is ``kernels.flash_attention``),
+or with ``attention.sliding_window_attention`` under a checkpoint for a
+windowed layer, as the reference wraps it in ``jax.checkpoint``;
 single-token decode goes through ``kernels.flash_decode`` (the Hopper
 kernels for CUDA tensors, their plain versions for CPU tensors); chunked
 prefill attends with ``attention.chunk_decode_attention``.  Cache updates
@@ -15,6 +17,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.flash_decode import ref as flash_ref
@@ -43,18 +46,22 @@ def attn_sublayer(p: Params, x: torch.Tensor, positions: torch.Tensor,
                   theta: float | None = None,
                   causal: bool = True) -> torch.Tensor:
     """Pre-norm self-attention over a whole (B, T, D) sequence at
-    ``positions`` (T,), residual added."""
-    if window:
-        raise NotImplementedError(
-            "sliding-window attention (sliding_window_attention) is not "
-            "ported yet: ROADMAP Queue 1 #9")
+    ``positions`` (T,), residual added; causal local attention over
+    ``window`` keys when ``window`` > 0."""
     h = layers.rms_norm(p["attn_norm"], x, cfg.rms_norm_eps)
     q, k, v = attn.qkv_project(
         p["attn"], h, positions=positions if cfg.pos_embed == "rope" else None,
         rope_theta=theta if theta is not None else cfg.rope_theta,
     )
-    out = attn.full_attention(q, k, v, causal=causal,
-                              softcap=cfg.attn_logit_softcap)
+    if window:
+        # blocked local attention materialises O(T * 2W) probabilities;
+        # checkpoint so they are recomputed (transiently) in backward
+        out = checkpoint(attn.sliding_window_attention, q, k, v,
+                         window=window, softcap=cfg.attn_logit_softcap,
+                         use_reentrant=False)
+    else:
+        out = attn.full_attention(q, k, v, causal=causal,
+                                  softcap=cfg.attn_logit_softcap)
     return x + attn.output_project(p["attn"], out)
 
 
@@ -133,6 +140,14 @@ def layer_kinds(cfg: ArchConfig) -> list[str]:
     """Expand cfg.layer_pattern cyclically over num_layers."""
     pat = cfg.layer_pattern or "G"
     return [pat[i % len(pat)] for i in range(cfg.num_layers)]
+
+
+def local_params(cfg: ArchConfig, kind: str) -> tuple[int, float]:
+    """(window, rope_theta) for an attention layer of the given kind."""
+    if kind == "L" or kind == "A":
+        # local layers use the short rope theta (gemma3: 10k local / 1M global)
+        return cfg.sliding_window, 10_000.0 if kind == "L" else cfg.rope_theta
+    return 0, cfg.rope_theta
 
 
 def is_uniform(cfg: ArchConfig) -> bool:

@@ -376,12 +376,18 @@ def test_stacked_and_looped_layouts_agree():
 
 def test_model_refuses_what_the_port_does_not_run():
     _, cfg = _cfgs()
-    for kw, word in ((dict(family="hybrid"), "hybrid"),
+    for kw, word in ((dict(family="moe"), "moe"),
                      (dict(layer_pattern="LLG", sliding_window=8), "pattern"),
                      (dict(attn_logit_softcap=50.0), "softcap"),
                      (dict(cache_dtype="float8_e4m3fn"), "float8")):
         with pytest.raises(ValueError, match=word):
             Model(dataclasses.replace(cfg, **kw))
+    # the hybrid family runs its forward; its decode state waits for #10c
+    hybrid = Model(get_reduced_config("recurrentgemma-2b"))
+    with pytest.raises(NotImplementedError, match="hybrid decode state.*#10c"):
+        hybrid.init_cache(1, 8, device=CPU)
+    with pytest.raises(NotImplementedError, match="hybrid decode state.*#10c"):
+        hybrid.decode_step({}, {}, torch.zeros((1, 1), dtype=torch.int32), 0)
 
 
 def test_entry_points_default_to_the_card():

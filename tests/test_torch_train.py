@@ -37,6 +37,7 @@ from repro import optim as joptim
 from repro.configs.base import get_reduced_config as jax_reduced_config
 from repro.launch import specs as jspecs
 from repro.launch import steps as jsteps
+from repro.models import transformer as jtf
 from repro.models.model import make_model as jax_make_model
 from repro_torch import bridge, optim
 from repro_torch.configs.base import get_reduced_config
@@ -325,11 +326,34 @@ def test_train_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="Queue 1 #8"):
         train.main(["--arch", "qwen2-1.5b", "--ckpt", "x.npz",
                     "--device", "cpu"])
-    _, _, model, params = _models()
-    x = torch.zeros(1, 4, model.cfg.d_model)
-    p = tree_map(lambda t: t[0], params["blocks"])
-    with pytest.raises(NotImplementedError, match="Queue 1 #9"):
-        tf.attn_sublayer(p, x, torch.arange(4), model.cfg, window=2)
+    # a windowed attention sublayer is ported (#9a): it matches the
+    # reference's, forward and gradients, at a window of 2 over 4 steps
+    jmodel, jparams, model, params = _models()
+    x = np.random.default_rng(0).standard_normal(
+        (1, 4, model.cfg.d_model)).astype(np.float32)
+    names = ("attn_norm", "attn")
+    jp = {n: jax.tree.map(lambda t: t[0], jparams["blocks"][n]) for n in names}
+    p = {n: tree_map(lambda t: t[0].detach().requires_grad_(),
+                     params["blocks"][n]) for n in names}
+
+    def jfwd(jp, x):
+        return jtf.attn_sublayer(jp, x, jnp.arange(4), jmodel.cfg, window=2)
+
+    want = jfwd(jp, jnp.asarray(x))
+    # a mean, as the loss is, so the 1e-6 floor is at the loss's scale
+    jg, jgx = jax.grad(lambda *a: jnp.mean(jfwd(*a) ** 2), argnums=(0, 1))(
+        jp, jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    out = tf.attn_sublayer(p, xt, torch.arange(4), model.cfg, window=2)
+    (out * out).mean().backward()
+    assert _err(want, out) < 2e-5
+    assert np.all(np.abs(np.asarray(jgx) - xt.grad.numpy())
+                  <= 1e-6 + 1e-4 * np.abs(np.asarray(jgx)))
+    got, ref_g = _flat(tree_map(lambda t: t.grad, p)), _flat(jg)
+    assert set(got) == set(ref_g)
+    for k, w in ref_g.items():
+        w = np.asarray(w)
+        assert np.all(np.abs(w - got[k].numpy()) <= 1e-6 + 1e-4 * np.abs(w)), k
 
 
 def test_train_without_device_raises_where_no_card():
