@@ -21,9 +21,13 @@ Phases, in order; any failure exits non-zero:
               (4096, 100), with default and other clips, and time both.
               Hold the flash-attention kernel against its plain version at
               the reference's sweep shapes (window included), ragged
-              shapes and the training shape (B 2, T 2048, H 12, K 2,
-              h 128, causal, bf16), and time it, the plain version and
-              scaled_dot_product_attention (a yardstick only) there.
+              shapes, v2's edge shapes (T not a multiple of 128, S past
+              the last full tile, G 6) and the training shape (B 2,
+              T 2048, H 12, K 2, h 128, causal, bf16), printing which of
+              its two variants ran (v2, TMA and wgmma, for bf16 at h 64
+              and 128; v1 for the rest); time v2 (beside v1's recorded
+              time), the plain version and scaled_dot_product_attention
+              (a yardstick only) there.
               Hold the SSD chunk-scan kernel (y, S_final, S_prevs) against
               its plain version at the reference's sweep shapes and
               mamba2-1.3b's training shape (B 2, T 2048, H 64, P 64,
@@ -52,8 +56,9 @@ Phases, in order; any failure exits non-zero:
               card against the same step on the CPU, TF32 off; then
               qwen2-1.5b at full width (bf16, remat per layer) for 5 steps
               of batch 2 x seq 2048 through launch/train.py, the
-              flash-attention and V-trace launch counts read over the run,
-              then one profiled step;
+              flash-attention and V-trace launch counts read over the run
+              (all 280 flash-attention launches v2's), then one profiled
+              step;
   8. mamba2   the same for mamba2-1.3b: one reduced float32 step card vs
               CPU, then full width (bf16, remat per layer) for 5 steps of
               batch 2 x seq 2048 (ssd_scan 2 x 48 x 5 = 480 launches,
@@ -383,7 +388,16 @@ FA_SHAPES = [
     (1, 100, 100, 4, 2, 64, False, 0, 0.0),
     (2, 77, 300, 4, 2, 256, False, 0, 0.0),
     (2, 2047, 2047, 12, 2, 128, True, 0, 0.0),
+    # v2's edges: T not a multiple of its 128-row tiles (G 6), S past the
+    # last full tile, G 6 at h 64, a window across tiles, softcap at the
+    # training shape
+    (1, 300, 300, 12, 2, 128, True, 0, 0.0),
+    (2, 128, 200, 4, 2, 128, False, 0, 0.0),
+    (1, 1000, 1000, 6, 1, 64, True, 0, 0.0),
+    (1, 1000, 1000, 12, 2, 128, True, 300, 0.0),
+    (2, 2048, 2048, 12, 2, 128, True, 0, 30.0),
 ]
+FA_V1_MS = 0.2618  # v1 at FA_TRAIN on an H100 at 700 W (PERF.md §6)
 FA_TRAIN = (2, 2048, 2048, 12, 2, 128, True, 0, 0.0)  # qwen2-1.5b, 2 x 2048
 FA_LSE_TOL = 1e-4  # float32 sums over up to 2048 keys in another order
 
@@ -419,6 +433,8 @@ def flash_attention_phase(dev) -> dict:
         tol = TOL[str(dtype)]
         for B, T, S, H, K, h, causal, window, cap in FA_SHAPES + [FA_TRAIN]:
             q, k, v = inputs(B, T, S, H, K, h, dtype)
+            which = fa.variant(dtype, h)
+            before = dict(fa.VARIANT_LAUNCHES)
             out, lse = fa.flash_attention_cuda(q, k, v, causal=causal,
                                                window=window, softcap=cap)
             want, want_lse = ref.flash_attention_ref(
@@ -426,10 +442,13 @@ def flash_attention_phase(dev) -> dict:
             torch.cuda.synchronize()
             err = (out.float() - want.float()).abs().max().item()
             lse_err = (lse - want_lse).abs().max().item()
-            print(f"flash  {str(dtype):15s} B={B} T={T:4d} S={S:4d} H={H:2d} "
-                  f"K={K} h={h:3d} causal={causal:d} window={window:3d} "
-                  f"softcap={cap:4.1f} max_abs_err={err:.3e} (tol {tol}) "
-                  f"lse_err={lse_err:.3e} (tol {FA_LSE_TOL})")
+            print(f"flash  {which} {str(dtype):15s} B={B} T={T:4d} S={S:4d} "
+                  f"H={H:2d} K={K} h={h:3d} causal={causal:d} "
+                  f"window={window:3d} softcap={cap:4.1f} max_abs_err="
+                  f"{err:.3e} (tol {tol}) lse_err={lse_err:.3e} (tol "
+                  f"{FA_LSE_TOL})")
+            check(fa.VARIANT_LAUNCHES[which] == before[which] + 1,
+                  f"flash attention {which} not launched")
             check(bool(torch.isfinite(out).all() and torch.isfinite(lse).all()),
                   "flash attention output not finite")
             check(err <= tol, f"flash kernel off by {err} at {B, T, S, H, K, h}"
@@ -448,17 +467,21 @@ def flash_attention_phase(dev) -> dict:
 
     lib_err = (sdpa().transpose(1, 2).float()
                - fa.flash_attention_cuda(q, k, v)[0].float()).abs().max().item()
+    variant = fa.variant(q.dtype, h)
     ms = time_ms(lambda: fa.flash_attention_cuda(q, k, v), flush)
     plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v), flush)
     library_ms = time_ms(sdpa, flush)
     bound_ms, bound_by = flash_attention_bound(B, T, S, H, K, h, causal, 2)
     print(f"time   flash_attention B={B} T={T} H={H} K={K} h={h} causal bf16 "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
+          f"{variant} ms={ms:.4f} (v1 {FA_V1_MS} recorded) "
+          f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
           f"bound_ms={bound_ms:.5f} ({bound_by}); sdpa vs kernel "
-          f"max_abs_diff={lib_err:.3e}")
+          f"max_abs_diff={lib_err:.3e}; worst bf16 error at the training "
+          f"shape {train_err:.4e}")
     return {"flash_attention": dict(max_abs_err=train_err, ms=ms,
                                     plain_ms=plain_ms, bound_ms=bound_ms,
-                                    bound_by=bound_by, library_ms=library_ms)}
+                                    bound_by=bound_by, library_ms=library_ms,
+                                    variant=variant)}
 
 
 # ------------------------------------------------- phase 2, SSD chunk scan
@@ -1202,6 +1225,7 @@ def learner_run(dev, arch: str) -> tuple[dict, dict]:
     import torch
 
     from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.launch import train
 
     kernels = _learner_kernels(get_config(arch).family)
@@ -1227,6 +1251,7 @@ def learner_run(dev, arch: str) -> tuple[dict, dict]:
                           batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev)
         torch.cuda.synchronize()
         launched = _all_launches()
+        variants = dict(fa.VARIANT_LAUNCHES)
     finally:
         for name, _, mod, attr in kernels:
             setattr(mod, attr, saved[name])
@@ -1285,12 +1310,22 @@ def learner_run(dev, arch: str) -> tuple[dict, dict]:
     else:
         check(abs(ce0 - log_v) < 0.5,
               f"first-step ce {ce0} far from log(V) = {log_v}")
+    # every flash-attention launch goes to the variant the rule picks for
+    # the model's dtype and head_dim (v2 for qwen2-1.5b's bf16 h 128)
+    want_variants = {"v1": 0, "v2": 0}
+    want_variants[fa.variant(getattr(torch, cfg.param_dtype),
+                             cfg.head_dim)] = want["flash_attention"]
+    print(f"train  flash-attention launches by variant {variants} "
+          f"(expected {want_variants})")
     check(launched == want, f"launches {launched} != {want}")
+    check(variants == want_variants,
+          f"flash-attention variants {variants} != {want_variants}")
     check(not any(plain_on_card.values()),
           f"a plain version ran on the card: {plain_on_card}")
     check(all(bool(torch.isfinite(x).all()) for x in _leaves(out["params"])),
           "trained params not finite")
-    return out, {name: launched[name] for name, *_ in kernels}
+    return out, {**{name: launched[name] for name, *_ in kernels},
+                 "flash_attention_variants": variants}
 
 
 def trace_step(dev, out, kinds: dict, ops: tuple) -> None:
@@ -1349,7 +1384,8 @@ def train_phase(dev) -> dict:
     TRAIN_STEPS steps and one profiled step; returns the launches."""
     train_parity(dev, "qwen2-1.5b", 100)
     out, launches = learner_run(dev, "qwen2-1.5b")
-    trace_step(dev, out, {"flash_attention kernel": ("flash_fwd_kernel",),
+    trace_step(dev, out, {"flash_attention kernel": ("flash_fwd_kernel",
+                                                     "flash_fwd_v2_kernel"),
                           "vtrace kernel": ("vtrace_kernel",)},
                ("_FlashAttention", "_FlashAttentionBackward"))
     return launches
@@ -1560,6 +1596,9 @@ def main() -> int:
                         "replaces": replaces,
                         "launches": sum(by_path[name].values()),
                         "launches_by_path": by_path[name], **records[name]})
+        if name == "flash_attention":
+            kernels[-1]["launches_by_variant"] = trained[
+                "flash_attention_variants"]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -13,7 +13,9 @@ and S in another order, through exp).
 
 The CUDA kernel runs only on the card: the ``gpu`` tests here skip
 without one, and ``chip_smoke.py`` holds the kernel against the plain
-version at the training shape.
+version at the training shape.  Its two variants (v1 on ``mma.sync``, v2
+on TMA and ``wgmma``) are chosen by a static rule on (dtype, head_dim),
+which the CPU tests pin.
 """
 
 import jax
@@ -153,20 +155,66 @@ def test_ops_sends_cpu_tensors_to_the_plain_version():
     assert fa.LAUNCHES == {"flash_attention": 0}
 
 
-def test_cuda_wrapper_refuses_what_the_kernel_does_not_take():
+def _zeros(dtype, T=16, H=4, K=2, h=128):
+    return [torch.zeros(1, T, n, h, dtype=dtype) for n in (H, K, K)]
+
+
+def _strided(t):  # the same shape with heads outermost in memory
+    return t.transpose(1, 2).contiguous().transpose(1, 2)
+
+
+def _misaligned(t):  # the same shape, one element past a 16-byte boundary
+    shifted = torch.zeros(t.numel() + 1, dtype=t.dtype)[1:].view(t.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    return shifted
+
+
+def _with(i, f):
+    """q, k and v as ``_zeros`` makes them, the i-th passed through f."""
+    def make(dtype):
+        ts = _zeros(dtype)
+        ts[i] = f(ts[i])
+        return ts
+    return make
+
+
+# Every refusal but the last comes before the device check, so it shows on
+# the CPU; the last is the device check itself.
+REFUSALS = {
+    "head_dim 16": (lambda d: _zeros(d, h=16), ValueError, "head_dim 16"),
+    "head_dim 96": (lambda d: _zeros(d, h=96), ValueError, "head_dim 96"),
+    "head_dim 512": (lambda d: _zeros(d, h=512), ValueError, "head_dim 512"),
+    "float16": (lambda d: _zeros(torch.float16), TypeError, "float16"),
+    "H % K": (lambda d: _zeros(d, H=6, K=4), ValueError, "multiple"),
+    "strided q": (_with(0, _strided), ValueError, "q must be contiguous"),
+    "strided v": (_with(2, _strided), ValueError, "v must be contiguous"),
+    "misaligned k": (_with(1, _misaligned), ValueError,
+                     "k must start on a 16-byte"),
+    "cpu": (_zeros, ValueError, "CUDA"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSALS))
+def test_cuda_wrapper_refuses_what_the_kernel_does_not_take(case):
     """A wrapper launches its kernel or raises: nothing is sent to the
-    plain version, and nothing is built for a refused call."""
-    q, k, v = _to_torch(_qkv(1, 16, 16, 4, 2, 64, 6), torch.float32)
-    with pytest.raises(ValueError, match="CUDA"):
-        fa.flash_attention_cuda(q, k, v)
-    wide = torch.zeros(1, 16, 2, 512)
-    with pytest.raises(ValueError, match="head_dim 512"):
-        fa.flash_attention_cuda(wide, wide[:, :, :1], wide[:, :, :1])
-    with pytest.raises(TypeError, match="float16"):
-        fa.flash_attention_cuda(q.half(), k.half(), v.half())
-    with pytest.raises(ValueError, match="multiple"):
-        fa.flash_attention_cuda(q[:, :, :3].contiguous(), k, v)
+    plain version, and nothing is built or launched for a refused call, in
+    either dtype, whichever variant the rule would pick."""
+    make, exc, match = REFUSALS[case]
+    for dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(exc, match=match):
+            fa.flash_attention_cuda(*make(dtype))
     assert fa.LAUNCHES == {"flash_attention": 0}
+    assert fa.VARIANT_LAUNCHES == {"v1": 0, "v2": 0}
+
+
+@pytest.mark.parametrize("dtype,h,want", [
+    (torch.bfloat16, 64, "v2"), (torch.bfloat16, 128, "v2"),
+    (torch.bfloat16, 32, "v1"), (torch.bfloat16, 256, "v1"),
+    (torch.float32, 32, "v1"), (torch.float32, 64, "v1"),
+    (torch.float32, 128, "v1"), (torch.float32, 256, "v1"),
+])
+def test_variant_rule_sends_bf16_h64_and_h128_to_v2(dtype, h, want):
+    assert fa.variant(dtype, h) == want
 
 
 @pytest.fixture
@@ -179,21 +227,33 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_kernel_matches_plain_version_on_card(cuda, dtype):
+    """Each variant where the rule sends it: v2 at every bf16 case of h 64
+    or 128, v1 at the float32 cases and at h 32 and 256."""
     _, tdt, tol = DTYPES[dtype]
     cases = [(*s, 0.0) for s in SHAPES] + [
         (1, 100, 100, 4, 2, 64, True, 0, 30.0),  # ragged, softcap
+        (1, 100, 100, 4, 2, 128, False, 0, 0.0),  # ragged, non-causal
+        (2, 77, 300, 4, 2, 128, False, 0, 0.0),  # ragged T and S
         (2, 77, 300, 4, 2, 256, False, 0, 0.0),  # ragged T and S, h 256
         (2, 512, 512, 12, 2, 128, True, 0, 0.0),  # the training heads
+        (1, 2047, 2047, 12, 2, 128, True, 0, 0.0),  # G 6, ragged T
+        (1, 300, 300, 6, 1, 64, True, 64, 0.0),  # G 6, window across tiles
+        (1, 256, 256, 4, 1, 128, True, 0, 30.0),  # G 4, softcap
     ]
     for B, T, S, H, K, h, causal, window, cap in cases:
         ts = [t.to(cuda, tdt) for t in
               _to_torch(_qkv(B, T, S, H, K, h, T + S), torch.float32)]
+        which = fa.variant(tdt, h)
         before = fa.LAUNCHES["flash_attention"]
+        before_variant = fa.VARIANT_LAUNCHES[which]
         out, lse = ops.flash_attention(*ts, causal=causal, window=window,
                                        softcap=cap)
         assert fa.LAUNCHES["flash_attention"] == before + 1
+        assert fa.VARIANT_LAUNCHES[which] == before_variant + 1
         want, want_lse = ref.flash_attention_ref(*ts, causal=causal,
                                                  window=window, softcap=cap)
         assert out.dtype == tdt and bool(torch.isfinite(out).all())
-        assert (out.float() - want.float()).abs().max().item() < tol
-        assert (lse - want_lse).abs().max().item() < 1e-4
+        assert bool(torch.isfinite(lse).all())
+        assert (out.float() - want.float()).abs().max().item() < tol, (
+            which, B, T, S, H, K, h)
+        assert (lse - want_lse).abs().max().item() < 1e-4, (which, h)
