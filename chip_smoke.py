@@ -9,13 +9,19 @@ Phases, in order; any failure exits non-zero:
               vtrace.cu, flash_attention.cu, ssd_scan.cu, rglru_scan.cu)
               from this checkout, one nvcc each, all at once (sm_90a), and
               print the seconds and the ptxas report;
-  2. kernels  hold the dense and the paged flash-decode kernel against
-              their plain PyTorch versions at the serving path's head shapes
-              (B=8, H=12, K=2, h=128, ragged per-row positions), in float32
+  2. kernels  hold the dense and the paged flash-decode kernel (split-K,
+              then the combine kernel) against their plain PyTorch versions
+              at the serving path's head shapes (B=8, H=12, K=2, h=128,
+              ragged per-row positions) at S 256 and S 4096, and at the
+              split's edge shapes (a row at pos 0, S not a multiple of the
+              split, G 1 and 16, h 64 and 256, bs 16 and 32), in float32
               and bfloat16, with and without a window; check paged == dense
-              bit for bit on the gathered cache; time kernel, plain version
-              and scaled_dot_product_attention (a yardstick only: the port
-              never calls it).  Hold the V-trace kernel against its plain
+              bit for bit on the gathered cache and that a call repeated
+              gives the same bits; at S 256 and S 4096 in bf16 time the
+              kernel and scaled_dot_product_attention (a yardstick only:
+              the port never calls it) in turns, five rounds, with an empty
+              launch beside the S 256 rows, and the plain version once.
+              Hold the V-trace kernel against its plain
               version at the reference's sweep shapes, the Sebulba
               learner's (32, 20), the LLM learner's (2, 2047) and a large
               (4096, 100), with default and other clips, and time both.
@@ -43,7 +49,9 @@ Phases, in order; any failure exits non-zero:
               against the same weights on the CPU (plain versions);
   4. serve    qwen2-1.5b at full published width, random weights from a seed,
               bf16: 16 requests through the paged ServeEngine, then the dense
-              one, with each kernel's launch count read over its run; one
+              one, with each kernel's launch count read over its run (the
+              decode kernel and the combine kernel each 28 layers x decode
+              steps); one
               dense engine prefill and decode call under
               torch.cuda.set_sync_debug_mode("error");
   5. learner  one Sebulba learner update of the full-width ConvActorCritic
@@ -199,6 +207,33 @@ def build_phase() -> None:
 # ------------------------------------------------------------ phase 2
 
 
+# flash-decode: the serving shape (B 8, H 12, K 2, h 128, bs 16) at S 256
+# and at S 4096, timed; and the split's edge shapes (the CPU tests'): a row
+# at pos 0 (later splits wholly masked), S not a multiple of the split, G 1
+# and 16, h 64 and 256, bs 16 and 32, and pages of 24 (not a power of two,
+# straddling the splits).  (B, S, H, K, h, pos, bs)
+FD_SHAPES = [
+    (8, 256, 12, 2, 128, [0, 31, 32, 100, 127, 200, 254, 255], 16),
+    (8, 4096, 12, 2, 128, [0, 255, 256, 1000, 2047, 3000, 4000, 4095], 16),
+    (3, 96, 4, 2, 64, [0, 40, 95], 32),
+    (2, 256, 2, 2, 128, [255, 130], 32),
+    (2, 128, 16, 1, 64, [0, 127], 16),
+    (1, 192, 8, 2, 256, [150], 16),
+    (2, 120, 12, 2, 128, [119, 50], 24),
+]
+# bf16 outputs are also held against the plain version computed in float32
+# on the same inputs, within half a bf16 ulp (2**-8 of the magnitude) plus
+# the float32 tolerance: a bound that scales with the output, where the
+# flat 2e-2 is as large as a long row's outputs (|out| ~ 0.03 at S 4096)
+FD_BF16_REL = 2.0**-8
+FD_TIMED = 2  # the first shapes, timed in bf16
+FD_ROUNDS = 5  # kernel and SDPA timed in turns, this many rounds each
+
+
+def spread(ts: list[float]) -> str:
+    return f"{statistics.median(ts):.4f} [{min(ts):.4f}, {max(ts):.4f}]"
+
+
 def kernel_phase(dev) -> dict:
     import torch
     import torch.nn.functional as F
@@ -206,18 +241,18 @@ def kernel_phase(dev) -> dict:
     from repro_torch.kernels.flash_decode import flash_decode as fd
     from repro_torch.kernels.flash_decode import ref
 
-    B, H, K, h, bs = 8, 12, 2, 128, 16
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)  # 256 MB
-    records = {}
+    tiny = torch.empty(1, dtype=torch.int32, device=dev)
+    records = {"flash_decode": {}, "flash_decode_paged": {}}
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    def paged_layout(kc, vc, pos_list):
+    def paged_layout(kc, vc, pos_list, bs):
         """Scatter a dense cache into a permuted page pool; each row's
         unmapped tail entries point at page 0."""
-        S = kc.shape[1]
+        B, S, K, h = kc.shape
         nb = S // bs
         P = 1 + B * nb
         perm = 1 + torch.randperm(P - 1, generator=gen, device=dev)
@@ -239,9 +274,33 @@ def kernel_phase(dev) -> dict:
                                                       attn_mask=mask,
                                                       enable_gqa=True)
 
-    for S, pos_list in ((256, [0, 31, 32, 100, 127, 200, 254, 255]),
-                        (4096, [0, 255, 256, 1000, 2047, 3000, 4000, 4095])):
+    def max_err(a, b) -> float:
+        return (a.float() - b.float()).abs().max().item()
+
+    def bf16_excess(out, exact) -> float:
+        """How far a bf16 output lies past half an ulp of the float32
+        result: <= the float32 tolerance when only the rounding differs."""
+        return ((out.float() - exact).abs()
+                - FD_BF16_REL * exact.abs()).max().item()
+
+    def scaled(dtype, out, fn, *args, **kw) -> str:
+        """The scaled bf16 check of ``out`` against ``fn`` in float32."""
+        if dtype != torch.bfloat16:
+            return ""
+        args = [a.float() if a.is_floating_point() else a for a in args]
+        exact = fn(*args, **kw)
+        excess = bf16_excess(out, exact)
+        scaled_errs.append(excess)
+        check(excess <= TOL["torch.float32"], f"bf16 output {excess} past "
+              f"half an ulp of the float32 result")
+        return (f" past_half_ulp={excess:.3e} (tol {TOL['torch.float32']}; "
+                f"max|out| {exact.abs().max().item():.3e})")
+
+    scaled_errs = []
+
+    for i_shape, (B, S, H, K, h, pos_list, bs) in enumerate(FD_SHAPES):
         pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+        print(f"plan   S={S} B={B} H={H} K={K}: {fd.plan(S, B, H, K)}")
         for dtype in (torch.float32, torch.bfloat16):
             tol = TOL[str(dtype)]
             q = randn(B, 1, H, h, dtype=dtype)
@@ -249,31 +308,45 @@ def kernel_phase(dev) -> dict:
             errs = {}
             for window in (0, 100):
                 out = fd.flash_decode_cuda(q, kc, vc, pos, window=window)
+                again = fd.flash_decode_cuda(q, kc, vc, pos, window=window)
                 want = ref.decode_attention_ref(q, kc, vc, pos, window=window)
                 torch.cuda.synchronize()
-                err = errs[window] = (out.float() - want.float()).abs().max().item()
-                print(f"dense  S={S:5d} {str(dtype):15s} window={window:3d} "
-                      f"max_abs_err={err:.3e} (tol {tol})")
+                err = errs[window] = max_err(out, want)
+                past = scaled(dtype, out, ref.decode_attention_ref, q, kc, vc,
+                              pos, window=window)
+                print(f"dense  S={S:5d} G={H // K:2d} h={h:3d} {str(dtype):15s} "
+                      f"window={window:3d} max_abs_err={err:.3e} (tol {tol})"
+                      f"{past} repeat_equal {torch.equal(out, again)}")
                 check(bool(torch.isfinite(out).all()), "dense output not finite")
                 check(err <= tol, f"dense kernel off by {err} at S={S} {dtype}")
-            kp, vp, table = paged_layout(kc, vc, pos_list)
+                check(torch.equal(out, again), f"dense kernel not repeatable "
+                      f"at S={S} {dtype}")
+            kp, vp, table = paged_layout(kc, vc, pos_list, bs)
             out_p = fd.flash_decode_paged_cuda(q, kp, vp, table, pos)
+            again_p = fd.flash_decode_paged_cuda(q, kp, vp, table, pos)
             want_p = ref.paged_decode_attention_ref(q, kp, vp, table, pos)
-            dense_g = fd.flash_decode_cuda(q, ref.gather_pages(kp, table),
-                                           ref.gather_pages(vp, table), pos)
+            kg, vg = ref.gather_pages(kp, table), ref.gather_pages(vp, table)
+            dense_g = fd.flash_decode_cuda(q, kg, vg, pos)
             torch.cuda.synchronize()
-            err_p = (out_p.float() - want_p.float()).abs().max().item()
+            err_p = max_err(out_p, want_p)
+            past = scaled(dtype, out_p, ref.paged_decode_attention_ref, q, kp,
+                          vp, table, pos)
             same = torch.equal(out_p, dense_g)
-            print(f"paged  S={S:5d} {str(dtype):15s} bs={bs} "
-                  f"max_abs_err={err_p:.3e} (tol {tol}) paged==dense {same}")
+            print(f"paged  S={S:5d} G={H // K:2d} h={h:3d} {str(dtype):15s} "
+                  f"bs={bs} max_abs_err={err_p:.3e} (tol {tol}){past} "
+                  f"paged==dense {same} repeat_equal "
+                  f"{torch.equal(out_p, again_p)}")
             check(err_p <= tol, f"paged kernel off by {err_p} at S={S} {dtype}")
             check(same, f"paged != dense on the gathered cache at S={S} {dtype}")
+            check(torch.equal(out_p, again_p), f"paged kernel not repeatable "
+                  f"at S={S} {dtype}")
 
-            if dtype != torch.bfloat16:
+            if dtype != torch.bfloat16 or i_shape >= FD_TIMED:
                 continue
-            # times: S=256 is the serving path's shape (max_seq 256)
+            # times at the serving shape (max_seq 256) and a long cache:
+            # kernel and SDPA in turns, L2 flushed before each call; SDPA
+            # for the paged kernel runs on the already-gathered cache
             P = kp.shape[0]
-            kg, vg = ref.gather_pages(kp, table), ref.gather_pages(vp, table)
             for name, kernel, plain, lib, err, extra in (
                 ("flash_decode",
                  lambda: fd.flash_decode_cuda(q, kc, vc, pos),
@@ -284,18 +357,40 @@ def kernel_phase(dev) -> dict:
                  lambda: ref.paged_decode_attention_ref(q, kp, vp, table, pos),
                  sdpa(q, kg, vg, pos), err_p, table.numel() * 4),
             ):
-                ms = time_ms(kernel, flush)
+                turns = {"kernel": [], "sdpa": [], "empty": []}
+                for _ in range(FD_ROUNDS):
+                    turns["kernel"].append(time_ms(kernel, flush))
+                    turns["sdpa"].append(time_ms(lib, flush))
+                    if S == 256:
+                        turns["empty"].append(time_ms(tiny.zero_, flush))
                 plain_ms = time_ms(plain, flush)
-                library_ms = time_ms(lib, flush)
                 bound_ms, bound_by = bound(q, K, pos_list, S, 0, extra)
-                print(f"time   S={S:5d} {name:19s} ms={ms:.4f} "
-                      f"plain_ms={plain_ms:.4f} sdpa_ms={library_ms:.4f} "
-                      f"bound_ms={bound_ms:.5f} ({bound_by}) P={P}")
+                ms = statistics.median(turns["kernel"])
+                library_ms = statistics.median(turns["sdpa"])
+                empty = (f" empty_launch_ms {spread(turns['empty'])}"
+                         if S == 256 else "")
+                print(f"time   S={S:5d} {name:19s} ms {spread(turns['kernel'])} "
+                      f"sdpa_ms {spread(turns['sdpa'])}"
+                      f"{' (on the gathered cache)' if extra else ''} "
+                      f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.5f} "
+                      f"({bound_by}, {bound_ms / ms:.3f} of it){empty} P={P} "
+                      f"rounds={FD_ROUNDS}")
+                rec = dict(max_abs_err=err, ms=ms,
+                           ms_range=[min(turns["kernel"]), max(turns["kernel"])],
+                           plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=library_ms,
+                           library_ms_range=[min(turns["sdpa"]),
+                                             max(turns["sdpa"])])
+                if extra:
+                    rec["library_on"] = "the gathered cache"
                 if S == 256:
-                    records[name] = dict(max_abs_err=err, ms=ms,
-                                         plain_ms=plain_ms,
-                                         bound_ms=bound_ms, bound_by=bound_by,
-                                         library_ms=library_ms)
+                    rec["empty_launch_ms"] = statistics.median(turns["empty"])
+                    records[name].update(rec)
+                else:
+                    records[name]["at_S4096"] = rec
+    print(f"kernel flash-decode bf16: worst output past half an ulp of the "
+          f"float32 plain version {max(scaled_errs):.3e} over "
+          f"{len(scaled_errs)} checks (tol {TOL['torch.float32']})")
     return records
 
 
@@ -786,6 +881,9 @@ def serve_phase(dev) -> dict:
               f"{kernel}: {n} launches != {cfg.num_layers} x "
               f"{engine.decode_steps} decode steps")
         check(launches[name][other] == 0, f"{other} launched in the {name} run")
+        check(launches[name]["flash_decode_combine"] == n,
+              f"flash_decode_combine: {launches[name]['flash_decode_combine']} "
+              f"launches != {n} {kernel} launches")
 
     agree = total = 0
     for r in reqs:
@@ -807,7 +905,9 @@ def serve_phase(dev) -> dict:
     check(bool(torch.isfinite(logits).all() and torch.isfinite(values).all()),
           "full-width logits not finite")
     return {"paged": launches["paged"]["flash_decode_paged"],
-            "dense": launches["dense"]["flash_decode"]}
+            "dense": launches["dense"]["flash_decode"],
+            "combine": {name: launches[name]["flash_decode_combine"]
+                        for name in ("paged", "dense")}}
 
 
 def dense_sync_check(model, params, scfg) -> None:
@@ -885,12 +985,25 @@ def trace_phase(model, params, scfg, reqs) -> None:
         wall = time.perf_counter() - t0
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    # the combine kernel is launched as a programmatic dependent of the
+    # split kernel, so its device time includes its wait for the split
+    # kernel, whose time is counted already: busy leaves it out
+    combine = sum(e.self_device_time_total for e in kernels
+                  if "combine_kernel<" in e.key) / 1e6
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6 - combine
     print(f"trace  profiled paged run: wall {wall:.4f} s, device busy "
-          f"{busy:.4f} s = {busy / wall:.4f} of wall (profiler on)")
+          f"{busy:.4f} s = {busy / wall:.4f} of wall (profiler on; without "
+          f"the combine kernel's {combine:.4f} s, which overlaps the split "
+          f"kernel)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"trace    device {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x  {e.key[:90]}")
+    for e in kernels:  # the decode kernels
+        if any(n in e.key for n in ("paged_kernel<", "dense_kernel<",
+                                    "combine_kernel<")):
+            print(f"trace    decode {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"{e.count:6d}x  {e.key[:90]} "
+                  f"({e.self_device_time_total / 1e6 / busy:.4f} of busy)")
     host = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CPU]
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
@@ -1599,6 +1712,9 @@ def main() -> int:
         if name == "flash_attention":
             kernels[-1]["launches_by_variant"] = trained[
                 "flash_attention_variants"]
+        if name.startswith("flash_decode"):  # each call: split + combine
+            kernels[-1]["combine_launches"] = launches["combine"][
+                "paged" if name.endswith("paged") else "dense"]
     print(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
