@@ -25,6 +25,11 @@ masked form has a zero derivative there.  The chunk's cumulative decay is
 summed in float64 and rounded to float32 once, so the plain version gives
 the same values on the CPU and on the card.  ``ssd_chunk_scan_ref`` is what
 the Hopper kernel computes and what it is held against on the card.
+
+``ssd_staged_ref`` is the same scan cut into the Hopper kernel's stages
+(the head-free scores once per (row, chunk), every chunk's own state from
+a zero state, the state pass, then y), for the tests and ``chip_smoke.py``;
+the port's forward does not call it.
 """
 
 from __future__ import annotations
@@ -108,5 +113,52 @@ def ssd_chunk_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         S_prevs.append(S)
         y, S = ssd_one_chunk(S, xc[:, c], dtc[:, c], Bc[:, c], Cc[:, c], Af)
         ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(Bsz, T, H, P).to(x.dtype)
+    return y, S, torch.stack(S_prevs)
+
+
+def ssd_staged_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, chunk: int):
+    """``ssd_chunk_scan_ref`` in the stages of ``ssd_scan.cu`` -> (y, S_final,
+    S_prevs), shapes and dtypes as there:
+
+    1. cum per (row, chunk, head), summed in float64 and rounded once;
+    2. G = C B^T once per (row, chunk), shared by the heads;
+    3. each chunk's own state from a zero state,
+       S_c = sum_s exp(cum_{Q-1} - cum_s) (x_s dt_s) (x) B_s;
+    4. the state pass S_prev[c + 1] = exp(cum_{Q-1}[c]) S_prev[c] + S_c[c];
+    5. y = (G exp(cum_t - cum_s), masked before the exponential) (x_s dt_s)
+       + exp(cum_t) C_t . S_prev[c].
+
+    Each term is rounded as in ``ssd_one_chunk``; the sums run per stage."""
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    Q = min(chunk, T)
+    if T % Q:
+        raise ValueError(f"seq len {T} not divisible by chunk {Q}")
+    nc = T // Q
+    xc, dtc, Bc, Cc = chunks(x, dt, Bm, Cm, nc)  # (B, nc, Q, ...)
+    cum = torch.cumsum(dtc * A.float(), dim=2, dtype=torch.float64).float()
+    G = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
+    last = cum[:, :, -1]  # (B, nc, H)
+    dx = xc * dtc[..., None]
+    tail = torch.exp(last[:, :, None] - cum)
+    S_c = torch.einsum("bcsh,bcshp,bcsn->cbhpn", tail, dx, Bc)
+    S = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    S_prevs = []
+    for c in range(nc):
+        S_prevs.append(S)
+        S = S * torch.exp(last[:, c])[..., None, None] + S_c[c]
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    ys = []
+    for c in range(nc):  # one chunk at a time: (B, Q, Q, H) is live
+        delta = cum[:, c, :, None, :] - cum[:, c, None, :, :]
+        decay = torch.exp(torch.where(causal[None, :, :, None], delta,
+                                      -torch.inf))
+        y_intra = torch.einsum("btsh,bshp->bthp", G[:, c, ..., None] * decay,
+                               dx[:, c])
+        y_inter = torch.einsum("btn,bth,bhpn->bthp", Cc[:, c],
+                               torch.exp(cum[:, c]), S_prevs[c])
+        ys.append(y_intra + y_inter)
     y = torch.stack(ys, dim=1).reshape(Bsz, T, H, P).to(x.dtype)
     return y, S, torch.stack(S_prevs)

@@ -1,14 +1,18 @@
 """Build, load and launch the Hopper SSD chunk scan (``ssd_scan.cu``):
 ``ssd_scan_cuda`` replaces the reference's ``ssd_scan_pallas`` and also
-returns the state entering each chunk, which the backward needs.
+returns the state entering each chunk, which the backward needs.  One call
+launches the source's four stages in order on the current stream (the
+head-free scores, the chunk states, the state pass, y), into scratch the
+wrapper allocates.
 
 The source is compiled at first use with ``nvcc`` for sm_90a and loaded
 with ctypes (``kernels/_build.py``).  Nothing here runs at import: the CPU
 tests import this module on machines with no ``nvcc`` and no card.
 
-``LAUNCHES["ssd_scan"]`` counts the kernel's launches: the wrapper adds one
-where it launches, and nowhere else; callers that need a count over a run
-set it to 0 first (``reset_launches``).
+``LAUNCHES["ssd_scan"]`` counts the kernel's launches, one a call for the
+four stages: the wrapper adds one where it launches, and nowhere else;
+callers that need a count over a run set it to 0 first
+(``reset_launches``).
 """
 
 from __future__ import annotations
@@ -27,6 +31,9 @@ LAUNCHES = {"ssd_scan": 0}
 HEAD_DIMS = (16, 32, 64)  # the kernel's instantiations of P
 STATE_SIZES = (1, 2, 4, 8, 16, 32, 64, 128)  # N: a power of two <= 128
 MAX_CHUNK = 1024
+# rows of the output stage's query tiles (kWA in ssd_scan.cu): the scores'
+# scratch is (B, T / Q, Qp, Qp) with Qp = Q rounded up to a multiple of it
+QUERY_TILE = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _lib: ctypes.CDLL | None = None
 
@@ -40,8 +47,8 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = _build.load(SOURCE)
         p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.ssd_scan_fwd.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                     q, q, q, q, q, q, i, p]
+        lib.ssd_scan_fwd.argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i,
+                                     i, i, q, q, q, q, q, q, i, p]
         lib.ssd_scan_fwd.restype = i
         _lib = lib
     return _lib
@@ -102,15 +109,19 @@ def ssd_scan_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"the CUDA kernel takes CUDA tensors, not {x.device}")
     nc = T // Q
+    Qp = -(-Q // QUERY_TILE) * QUERY_TILE
+    f32 = dict(dtype=torch.float32, device=x.device)
     y = torch.empty((B, T, H, P), dtype=x.dtype, device=x.device)
-    s_final = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    s_prevs = torch.empty((nc, B, H, P, N), dtype=torch.float32,
-                          device=x.device)
+    s_final = torch.empty((B, H, P, N), **f32)
+    s_prevs = torch.empty((nc, B, H, P, N), **f32)
+    gram = torch.empty((B, nc, Qp, Qp), **f32)  # C B^T once per (b, chunk)
+    cum = torch.empty((B, H, nc, Q), **f32)
     err = _library().ssd_scan_fwd(
         x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), y.data_ptr(), s_final.data_ptr(), s_prevs.data_ptr(),
-        B, T, H, P, N, Q, x.stride(0), x.stride(1), Bm.stride(0),
-        Bm.stride(1), Cm.stride(0), Cm.stride(1), _DTYPES[x.dtype],
+        gram.data_ptr(), cum.data_ptr(), B, T, H, P, N, Q, x.stride(0),
+        x.stride(1), Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
+        _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:

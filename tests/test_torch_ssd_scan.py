@@ -18,6 +18,12 @@ abs error):
   * 1e-3 for gradients against autodiff of the sequential oracle, the
     reference's own pin for that comparison (``tests/test_perf_features.py:
     144-161``).
+Beside the flat forward bounds, checks that scale with the output
+(``_scaled_errors``): y within half a bf16 ulp (2**-8 of |want|) plus
+1e-4 * max|want| of the plain version computed in float32 on the same
+inputs, and the states within 1e-4 * max|want|.  At the full-width shape
+|y| reaches ~45, where the flat bf16 bound is smaller than one bf16 ulp of
+the largest outputs and larger than most of the others.
 
 The CUDA kernel runs only on the card: the ``gpu`` test here skips
 without one, and ``chip_smoke.py`` holds the kernel against the plain
@@ -43,6 +49,14 @@ SHAPES = [(2, 128, 4, 32, 16, 32), (1, 256, 2, 64, 32, 64),
           (2, 64, 8, 16, 8, 16)]
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-4),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 0.05)}
+# the kernel's edge shapes (B, T, H, P, N, Q): one chunk (T = Q = 256), a
+# chunk of 48 rows (not a multiple of the kernel's 16-row tiles or its
+# 128-row query tiles), N 1 (no whole 16-byte chunk of B and C) and N 128
+# at P 16
+EDGE_SHAPES = [(1, 256, 4, 64, 128, 256), (1, 96, 2, 32, 16, 48),
+               (2, 64, 4, 16, 1, 32), (2, 128, 4, 16, 128, 64)]
+BF16_HALF_ULP = 2.0**-8
+SCALED_TOL = 1e-4
 
 
 def _inputs(B, T, H, P, N, seed, *, dt_shift=0.0, A=None):
@@ -73,7 +87,7 @@ def _to_torch(xs, tdt):
 
 def _np(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
-        return x.detach().float().numpy()
+        return x.detach().float().cpu().numpy()
     return np.asarray(jnp.asarray(x, jnp.float32))
 
 
@@ -84,6 +98,34 @@ def _err(a, b) -> float:
 def _close(want, got, atol=1e-5, rtol=1e-4) -> bool:
     want, got = _np(want), _np(got)
     return bool(np.all(np.abs(want - got) <= atol + rtol * np.abs(want)))
+
+
+def _scaled_errors(got, want, want32):
+    """(y, S_final, S_prevs) against the plain version: y's largest excess
+    over half a bf16 ulp of the float32 result (``want32``, computed on the
+    same inputs in float32), and each state's largest error, all over their
+    max|want| (where that is 0, as for S_prevs of one chunk, the error
+    must be 0).  Within SCALED_TOL each when only the rounding differs."""
+    def rel(err, want):
+        scale = float(np.abs(_np(want)).max())
+        return err / scale if scale else (0.0 if err == 0 else np.inf)
+
+    y, y32 = _np(got[0]), _np(want32[0])
+    errs = [rel(float((np.abs(y - y32) - BF16_HALF_ULP * np.abs(y32)).max()),
+                y32)]
+    errs += [rel(_err(g, w), w) for g, w in zip(got[1:], want[1:])]
+    return errs
+
+
+def _strided(xs):
+    """x, Bm and Cm as views of one (B, T, H P + 2 N) tensor, as
+    mamba2_block hands them to the scan (the convolution's output)."""
+    x, dt, A, Bm, Cm = xs
+    B, T, H, P = x.shape
+    N = Bm.shape[-1]
+    wide = torch.cat([x.reshape(B, T, H * P), Bm, Cm], dim=-1)
+    return (wide[..., :H * P].reshape(B, T, H, P), dt, A,
+            wide[..., H * P:H * P + N], wide[..., H * P + N:])
 
 
 # ------------------------------------------------------------- forwards
@@ -104,6 +146,59 @@ def test_plain_chunk_scan_matches_pallas_and_oracle(B, T, H, P, N, Q, dtype):
     for want_y, want_S in (pallas, oracle):
         assert _err(want_y, y) < tol
         assert _err(want_S, S) < tol
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,T,H,P,N,Q", SHAPES)
+def test_staged_ref_matches_pallas_and_plain(B, T, H, P, N, Q, dtype):
+    """The kernel's stages in plain PyTorch (scores once per (row, chunk),
+    chunk states, the state pass, y) against the Pallas kernel in
+    interpret mode and the plain chunk scan."""
+    jdt, tdt, tol = DTYPES[dtype]
+    xs = _inputs(B, T, H, P, N, T + P)
+    ts = _to_torch(xs, tdt)
+    got = ref.ssd_staged_ref(*ts, Q)
+    assert got[0].dtype == tdt and got[0].shape == (B, T, H, P)
+    assert got[2].shape == (T // Q, B, H, P, N)
+    assert float(got[2][0].abs().max()) == 0.0
+    pallas = ssd_scan_pallas(*_to_jax(xs, jdt), chunk=Q, interpret=True)
+    assert _err(pallas[0], got[0]) < tol and _err(pallas[1], got[1]) < tol
+    plain = ref.ssd_chunk_scan_ref(*ts, Q)
+    assert all(_err(w, g) < tol for w, g in zip(plain, got))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("B,T,H,P,N,Q", EDGE_SHAPES)
+def test_staged_ref_meets_the_scaled_bounds_at_edge_shapes(B, T, H, P, N, Q,
+                                                           dtype):
+    """At the kernel's edge shapes the staged version agrees with the plain
+    chunk scan within the flat bounds and within the bounds that scale
+    with the output, which ``chip_smoke.py`` and the ``gpu`` test hold the
+    kernel to."""
+    _, tdt, tol = DTYPES[dtype]
+    ts = _to_torch(_inputs(B, T, H, P, N, T + N), tdt)
+    got = ref.ssd_staged_ref(*ts, Q)
+    want = ref.ssd_chunk_scan_ref(*ts, Q)
+    want32 = ref.ssd_chunk_scan_ref(*(t.float() for t in ts), Q)
+    assert all(_err(w, g) < tol for w, g in zip(want, got))
+    assert max(_scaled_errors(got, want, want32)) <= SCALED_TOL
+    assert float(got[2][0].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("B,T,H,P,N,Q", EDGE_SHAPES)
+def test_cuda_wrapper_takes_the_edge_shapes(B, T, H, P, N, Q, strided):
+    """Every edge shape, dense and as the model's strided views, passes the
+    wrapper's checks in both dtypes and is refused only for lying on the
+    CPU: nothing is launched and nothing is built."""
+    before = dict(ssd.LAUNCHES)
+    for tdt in (torch.float32, torch.bfloat16):
+        xs = _to_torch(_inputs(B, T, H, P, N, 12), tdt)
+        if strided:
+            xs = _strided(xs)
+        with pytest.raises(ValueError, match="takes CUDA tensors"):
+            ssd.ssd_scan_cuda(*xs, chunk=Q)
+    assert ssd.LAUNCHES == before
 
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -282,18 +377,36 @@ def cuda():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_kernel_matches_plain_version_on_card(cuda, dtype):
+    """The kernel against the plain chunk scan at the reference's shapes,
+    the reduced and full-width heads, the edge shapes and the full-width
+    training shape as strided views: the flat bounds, the bounds that
+    scale with the output (also against the staged form), and S_prevs[0]
+    exactly 0."""
     _, tdt, tol = DTYPES[dtype]
-    cases = SHAPES + [(2, 128, 16, 32, 16, 32),  # the reduced mamba2
-                      (1, 100, 2, 64, 16, 50),  # a chunk of 50 rows
-                      (2, 512, 8, 64, 128, 256)]  # the full-width heads
-    for B, T, H, P, N, Q in cases:
+    cases = [(s, False) for s in SHAPES + EDGE_SHAPES + [
+        (2, 128, 16, 32, 16, 32),  # the reduced mamba2
+        (1, 100, 2, 64, 16, 50),  # a chunk of 50 rows
+        (2, 512, 8, 64, 128, 256)]]  # the full-width heads
+    cases += [((2, 2048, 64, 64, 128, 256), True),  # the training shape
+              ((2, 64, 4, 16, 1, 32), True)]
+    for (B, T, H, P, N, Q), strided in cases:
         xs = [t.to(cuda) for t in _to_torch(_inputs(B, T, H, P, N, T + H),
                                             tdt)]
+        if strided:
+            xs = _strided(xs)
         before = ssd.LAUNCHES["ssd_scan"]
         got = ops.ssd_chunk_scan(*xs, Q)
         assert ssd.LAUNCHES["ssd_scan"] == before + 1
         want = ref.ssd_chunk_scan_ref(*xs, Q)
+        want32 = ref.ssd_chunk_scan_ref(*(t.float() for t in xs), Q)
+        staged32 = ref.ssd_staged_ref(*(t.float() for t in xs), Q)
         assert got[0].dtype == tdt
+        assert float(got[2][0].abs().max()) == 0.0
         for g, w in zip(got, want):
             assert bool(torch.isfinite(g).all())
             assert (g.float() - w.float()).abs().max().item() < tol
+        # the staged form rounds y to bf16 elsewhere than the plain version
+        # does, so a bf16 y may sit one ulp from it: held in float32
+        for w, w32 in ((want, want32), (staged32, staged32)):
+            assert max(_scaled_errors(got, w, w32)) <= SCALED_TOL, (
+                (B, T, H, P, N, Q), strided)
