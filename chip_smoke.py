@@ -21,10 +21,18 @@ Phases, in order; any failure exits non-zero:
               kernel and scaled_dot_product_attention (a yardstick only:
               the port never calls it) in turns, five rounds, with an empty
               launch beside the S 256 rows, and the plain version once.
-              Hold the V-trace kernel against its plain
-              version at the reference's sweep shapes, the Sebulba
-              learner's (32, 20), the LLM learner's (2, 2047) and a large
-              (4096, 100), with default and other clips, and time both.
+              Hold the V-trace kernel (v3, a two-level scan over time)
+              against its plain version at the reference's sweep shapes,
+              the Sebulba learner's (32, 20), the LLM learner's (2, 2047)
+              (also on the learner's own inputs: discounts 0.99, rewards
+              N(0, 0.1^2)), a large (4096, 100) and rows past one chunk of
+              shared memory (T 14,081 and 20,000), with default and other
+              clips; check that a repeated call gives the same bits, that
+              the launcher's split is vtrace.plan's and whether the kernel
+              equals the staged version (ref.vtrace_segmented_ref) bit for
+              bit; time the kernel in turns with an empty launch, five
+              rounds, and the plain version once, at (32, 20), (2, 2047)
+              and (4096, 100).
               Hold the flash-attention kernel against its plain version at
               the reference's sweep shapes (window included), ragged
               shapes, v2's edge shapes (T not a multiple of 128, S past
@@ -406,12 +414,15 @@ def kernel_phase(dev) -> dict:
 
 # the reference's sweep (tests/test_kernels.py), the Sebulba learner's
 # (32, 20), the LLM learner's (2, 2047) (batch 2 x seq 2048, one step
-# fewer), a large batch, and ragged edges: several 32-step tiles, T = 1,
-# one row
+# fewer), a large batch, ragged edges (T = 1, one row, T past the 9-step
+# segments' 2,304), and rows past one chunk of shared memory
 VTRACE_SHAPES = [(8, 32), (16, 100), (4, 7), (10, 12), (5, 9), (3, 6),
-                 (32, 20), (2, 2047), (4096, 100), (33, 33), (64, 1), (1, 200)]
+                 (32, 20), (2, 2047), (4096, 100), (33, 33), (64, 1), (1, 200),
+                 (2, 2305), (3, 14081), (1, 20000)]
 VTRACE_CLIPS = [{}, dict(clip_rho=0.9, clip_c=0.8, lambda_=0.95)]
 VTRACE_OPS_PER_ELEMENT = 16  # exp, 2 min, 13 multiply/add (vtrace.cu)
+VTRACE_TIMED = ((32, 20), (2, 2047), (4096, 100))
+VTRACE_ROUNDS = 5  # kernel and an empty launch timed in turns
 
 
 def vtrace_bound(B: int, T: int) -> tuple[float, str]:
@@ -431,21 +442,37 @@ def vtrace_phase(dev) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(3)
     flush = torch.empty(64 * 2**20, dtype=torch.int32, device=dev)
+    tiny = torch.empty(1, dtype=torch.int32, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
 
     def inputs(B, T):
-        def randn(*shape):
-            return torch.randn(shape, generator=gen, device=dev)
-
         disc = (torch.rand(B, T, generator=gen, device=dev) > 0.1).float()
         return [0.3 * randn(B, T), disc * 0.99, randn(B, T), randn(B, T),
                 randn(B)]
 
+    def learner_inputs(B, T):
+        """make_batch's fields (launch/specs.py): discounts 0.99, rewards
+        N(0, 0.1^2), behaviour log-probs -|N(0, 1)|; target log-probs drawn
+        the same way, values N(0, 0.1^2)."""
+        log_rhos = randn(B, T).abs() - randn(B, T).abs()
+        return [log_rhos, torch.full((B, T), 0.99, device=dev),
+                0.1 * randn(B, T), 0.1 * randn(B, T), 0.1 * randn(B)]
+
     errs = {}
-    for B, T in VTRACE_SHAPES:
-        xs = inputs(B, T)
+    cases = [(B, T, "", inputs(B, T)) for B, T in VTRACE_SHAPES]
+    cases.append((2, 2047, " learner", learner_inputs(2, 2047)))
+    staged_equal = []
+    for B, T, label, xs in cases:
+        plan = vt.plan(B, T)
+        check(vt.library_plan(B, T) == plan, f"vtrace launcher's split "
+              f"{vt.library_plan(B, T)} != plan {plan} at ({B}, {T})")
         for i, clips in enumerate(VTRACE_CLIPS):
             got = vt.vtrace_cuda(*xs, **clips)
+            again = vt.vtrace_cuda(*xs, **clips)
             want = ref.vtrace_ref(*xs, **clips)
+            staged = ref.vtrace_segmented_ref(*xs, plan=plan, **clips)
             torch.cuda.synchronize()
             err = excess = 0.0
             for g, w in zip(got, want):
@@ -453,27 +480,49 @@ def vtrace_phase(dev) -> dict:
                 d = (g - w).abs()
                 err = max(err, d.max().item())
                 excess = max(excess, (d - 1e-5 * w.abs()).max().item())
-            errs[B, T, i] = err
-            print(f"vtrace B={B:5d} T={T:4d} clips={clips or 'default'} "
-                  f"max_abs_err={err:.3e} (tol 1e-5 + 1e-5*|ref|)")
+            repeat = all(torch.equal(g, a) for g, a in zip(got, again))
+            same = all(torch.equal(g, w) for g, w in zip(got, staged))
+            staged_equal.append(same)
+            errs[B, T, label, i] = err
+            print(f"vtrace B={B:5d} T={T:5d}{label} clips={clips or 'default'} "
+                  f"max_abs_err={err:.3e} (tol 1e-5 + 1e-5*|ref|) "
+                  f"repeat_equal {repeat} staged_equal {same} "
+                  f"plan P={plan.row_threads} L={plan.seg} "
+                  f"chunks={plan.chunks} blocks={plan.blocks}")
             check(excess <= 1e-5, f"vtrace kernel off by {err} at "
-                  f"({B}, {T}) {clips}")
+                  f"({B}, {T}){label} {clips}")
+            check(repeat, f"vtrace kernel not repeatable at ({B}, {T}){label}")
+    print(f"vtrace kernel equal to the staged version bit for bit in "
+          f"{sum(staged_equal)} of {len(staged_equal)} checks")
 
     record = {}
-    for B, T in ((32, 20), (2, 2047), (4096, 100)):
+    for B, T in VTRACE_TIMED:
         xs = inputs(B, T)
-        ms = time_ms(lambda: vt.vtrace_cuda(*xs), flush)
+        turns = {"kernel": [], "empty": []}
+        for _ in range(VTRACE_ROUNDS):
+            turns["kernel"].append(time_ms(lambda: vt.vtrace_cuda(*xs), flush))
+            turns["empty"].append(time_ms(tiny.zero_, flush))
+        ms = statistics.median(turns["kernel"])
+        empty_ms = statistics.median(turns["empty"])
         plain_ms = time_ms(lambda: ref.vtrace_ref(*xs), flush)
         bound_ms, bound_by = vtrace_bound(B, T)
-        print(f"time   vtrace B={B:5d} T={T:4d} ms={ms:.4f} "
-              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}) "
+        print(f"time   vtrace B={B:5d} T={T:4d} ms {spread(turns['kernel'])} "
+              f"empty_launch_ms {spread(turns['empty'])} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by}, "
+              f"{bound_ms / ms:.4f} of it) rounds={VTRACE_ROUNDS} "
               "library_ms=- (no single PyTorch call computes V-trace)")
-        nums = dict(max_abs_err=max(errs[B, T, 0], errs[B, T, 1]), ms=ms,
-                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        nums = dict(max_abs_err=max(v for k, v in errs.items()
+                                    if k[:2] == (B, T)),
+                    ms=ms, ms_range=[min(turns["kernel"]),
+                                     max(turns["kernel"])],
+                    empty_launch_ms=empty_ms, plain_ms=plain_ms,
+                    bound_ms=bound_ms, bound_by=bound_by)
         if (B, T) == (32, 20):  # the Sebulba learner's shape
-            record = dict(nums, library_ms=None)
+            record.update(nums, library_ms=None)
         elif (B, T) == (2, 2047):  # the LLM learner's shape
             record["train_shape"] = dict(nums, B=B, T=T)
+        else:
+            record["large_batch"] = dict(nums, B=B, T=T)
     return {"vtrace": record}
 
 

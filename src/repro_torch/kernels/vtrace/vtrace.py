@@ -1,6 +1,14 @@
 """Build, load and launch the Hopper V-trace kernel (``vtrace.cu``):
 ``vtrace_cuda`` replaces the reference's ``vtrace_pallas``.
 
+The kernel is a two-level scan over time: each thread reduces a segment of
+one row, a row's segments are scanned within its block, and each thread
+re-runs its segment from the carry it gets.  ``plan(B, T)`` is the split
+the launcher computes from (B, T) alone (``make_plan`` in ``vtrace.cu``
+holds the same rule; ``library_plan`` asks the built library for it, so
+the card can hold the two against each other), and
+``ref.vtrace_segmented_ref`` is the same scan in plain PyTorch.
+
 The source is compiled at first use with ``nvcc`` for sm_90a and loaded
 with ctypes (``kernels/_build.py``).  Nothing here runs at import: the CPU
 tests import this module on machines with no ``nvcc`` and no card.
@@ -14,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -24,7 +33,66 @@ SOURCE = Path(__file__).with_name("vtrace.cu")
 
 LAUNCHES = {"vtrace": 0}
 
+THREADS = 256  # a block (kThreads in vtrace.cu)
+SEG_TARGET = 9  # a row takes threads until its segments are this short
+SEG_MAX = 55  # the longest segment: a chunk of 256 x 55 steps fits a block
+FILL = 132 * THREADS  # threads that give each of the H100's SMs a block
+# shared memory a block may use on sm_90 (cudaFuncSetAttribute's limit)
+SMEM_MAX = 232448
+
 _lib: ctypes.CDLL | None = None
+
+
+class Plan(NamedTuple):
+    row_threads: int  # P: threads a row, one segment each (a power of two)
+    rows: int  # R: rows a block, THREADS // P
+    seg: int  # L: steps a segment (odd: see vtrace.cu on shared banks)
+    chunk: int  # steps a chunk, P * L; a row is walked chunk by chunk
+    chunks: int  # chunks a row
+    stride: int  # floats from one row of a shared slab to the next
+    smem: int  # dynamic shared memory a block, bytes
+    blocks: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _odd(n: int) -> int:
+    return n | 1
+
+
+def plan(B: int, T: int) -> Plan:
+    """The kernel's split of a (B, T) batch.  A row takes threads, a power
+    of two, until its segments are at most SEG_TARGET steps (or the row
+    fills the block); then, while B rows leave the card short of FILL
+    threads, each row takes twice as many while that shortens its
+    segments.  A row longer than a block's shared memory holds (past
+    256 x SEG_MAX steps) is cut into chunks of equal length, walked from
+    the last."""
+    if B <= 0 or T <= 0:
+        raise ValueError(f"no V-trace plan for B={B}, T={T}")
+    P = 1
+    while P < THREADS and _odd(_cdiv(T, P)) > SEG_TARGET:
+        P *= 2
+    while (P < THREADS and B * P < FILL
+           and _odd(_cdiv(T, 2 * P)) < _odd(_cdiv(T, P))):
+        P *= 2
+    L = _odd(_cdiv(T, P))
+    if L > SEG_MAX:  # only at P == THREADS
+        L = _odd(_cdiv(T, THREADS * _cdiv(T, THREADS * SEG_MAX)))
+    R = THREADS // P
+    C = P * L
+    # a slab row holds a chunk and up to 3 floats of head, so that 16-byte
+    # aligned runs of the inputs land on 16-byte aligned shared memory; with
+    # several rows a block it is padded so that the threads of a warp
+    # reading step j of their segments, across rows, hit distinct banks
+    stride = _cdiv(min(C, T) + 3, 4) * 4
+    if R > 1 and (L * P) % 4 == 0:
+        while stride % 32 != (L * P) % 32:
+            stride += 4
+    smem = 4 * (4 * R * stride + 2 * R + 2 * (THREADS // 32))
+    return Plan(P, R, L, C, _cdiv(T, C), stride, smem, _cdiv(B, R))
 
 
 def reset_launches() -> None:
@@ -38,8 +106,18 @@ def _library() -> ctypes.CDLL:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.vtrace_f32.argtypes = [p, p, p, p, p, p, p, i, i, f, f, f, p]
         lib.vtrace_f32.restype = i
+        lib.vtrace_plan.argtypes = [i, i, p]
+        lib.vtrace_plan.restype = None
         _lib = lib
     return _lib
+
+
+def library_plan(B: int, T: int) -> Plan:
+    """The split the built kernel's launcher computes for (B, T): equal to
+    ``plan(B, T)`` where the two rules agree (needs ``nvcc``)."""
+    out = (ctypes.c_int * len(Plan._fields))()
+    _library().vtrace_plan(B, T, out)
+    return Plan(*out)
 
 
 def vtrace_cuda(
